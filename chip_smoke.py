@@ -5,18 +5,30 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. environment: the card's name and power limit, torch, capability (9, 0);
-  2. build: every CUDA kernel of the training path, compiled from csrc/;
+  2. build: every CUDA kernel of the training paths, compiled from csrc/;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the training path's shapes and a ragged one, with its time, the plain
-     version's time, one PyTorch library call's time as a yardstick, and the
-     least time the card could take for the same work (bound);
+     the training path's shapes and ragged ones (the l1 pairwise forward
+     also at eval's 512 x 14,951 x 400), with its time, the plain version's
+     time, one PyTorch library call's time as a yardstick, and the least
+     time the card could take for the same work (bound);
   4. agreement: three dim-400 training steps at batch 256 and k 64 on a
      small synthetic graph, on the card (kernels) and on the CPU (plain
-     versions), from the same tables and batches;
-  5. main path: ``python -m repro_torch.launch.train --dataset fb15k --model
-     transe_l2`` (14,951 x 400 entities, batch 1024, 256 joint negatives, T5
-     deferred update on) for 200 steps; the loss must fall and every kernel
-     must have launched at least twice a step.
+     versions), from the same tables and batches, for TransE_l2 and
+     TransE_l1;
+  5. TransE_l2 path: ``python -m repro_torch.launch.train --dataset fb15k
+     --model transe_l2`` (14,951 x 400 entities, batch 1024, 256 joint
+     negatives, T5 deferred update on) for 200 steps; the loss must fall and
+     every kernel of the path must have launched at least twice a step;
+  6. TransE_l1 path: the same with ``--model transe_l1 --eval --eval-n 2000
+     --ckpt-dir build/chip_smoke_ckpt --save-every 100``; the loss must fall,
+     the pairwise l1 and both l1 backward kernels launch at least twice a
+     step, the final filtered eval prints finite metrics, the trained tables
+     rank better than fresh ones, the card's filtered ranks equal the CPU
+     path's except where near-ties explain the difference, the checkpoint of
+     step 200 holds the final state and restores on the card bit for bit,
+     and ``--resume --steps 210`` goes on from step 200.
+
+Launch counts are set to 0 just before each path and read just after it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -27,6 +39,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -37,11 +51,23 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 TOL_REL = 2e-5  # kernel vs plain: fp32 sums taken in another order
 MAIN_PATH_STEPS = 200
+RESUME_STEPS = 210
+# (G, B, K, D): the training path's pairwise call, a ragged one, eval's
+# chunk of 512 queries against every entity, and the l1 backward's shapes
+# (B and K swapped runs each tile shape with g read both ways)
+PATH_SHAPE = (1, 1024, 256, 400)
+RAGGED_SHAPE = (2, 1000, 250, 300)
+EVAL_SHAPE = (1, 512, 14951, 400)
+L1_BWD_SHAPES = (PATH_SHAPE, RAGGED_SHAPE, (3, 65, 129, 33), (1, 256, 1024, 400))
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 
 TPU_KERNEL = {
     "pairwise": "src/repro/kernels/kge_score/kge_score.py:57",
     "dedup_aggregate": "src/repro/kernels/sparse_adagrad/sparse_adagrad.py:152",
     "fused_update": "src/repro/kernels/sparse_adagrad/sparse_adagrad.py:74",
+    # l1_bwd_pallas (:119), its two pallas_calls
+    "l1_bwd_do": "src/repro/kernels/kge_score/kge_score.py:123",
+    "l1_bwd_dn": "src/repro/kernels/kge_score/kge_score.py:135",
 }
 
 
@@ -107,15 +133,17 @@ def device_ms(torch, fn, reps=50, warmup=5):
     return total_us / reps / 1e3
 
 
-def timings(torch, kernel, plain, library, reps=50):
-    return dict(ms=device_ms(torch, kernel, reps), plain_ms=device_ms(torch, plain, 20),
-                library_ms=device_ms(torch, library, 20),
+def timings(torch, kernel, plain, library, reps=50, plain_reps=20):
+    return dict(ms=device_ms(torch, kernel, reps),
+                plain_ms=device_ms(torch, plain, plain_reps, min(5, plain_reps)),
+                library_ms=device_ms(torch, library, plain_reps, min(5, plain_reps)),
                 event_ms=event_ms(torch, kernel, reps))
 
 
 def _fmt(r) -> str:
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
     return (f"ms {r['ms']:.5f}  plain_ms {r['plain_ms']:.5f}  library_ms "
-            f"{r['library_ms']:.5f}  event_ms {r['event_ms']:.5f}  bound "
+            f"{lib}  event_ms {r['event_ms']:.5f}  bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
 
 
@@ -123,6 +151,13 @@ def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _max_err(torch, got, want):
+    """(max |got - want|, the tolerance 2e-5 x max(1, max |want|))."""
+    torch.cuda.synchronize()
+    return (float((got - want).abs().max()),
+            TOL_REL * max(1.0, float(want.abs().max())))
 
 
 # ---------------------------------------------------------------------------
@@ -133,39 +168,104 @@ def check_pairwise(torch, dev, gen):
     from repro_torch.kernels.kge_score.ref import pairwise_ref
 
     rows = []
-    path, ragged = (1, 1024, 256, 400), (2, 1000, 250, 300)
-    data = {s: (torch.randn(s[0], s[1], s[3], generator=gen).to(dev),
+    # eval's shape for l1 only: TransE_l1 is the model that evaluates
+    path, evals = PATH_SHAPE, EVAL_SHAPE
+
+    def operands(s):
+        return (torch.randn(s[0], s[1], s[3], generator=gen).to(dev),
                 torch.randn(s[0], s[2], s[3], generator=gen).to(dev))
-            for s in (path, ragged)}
+
+    data = {s: operands(s) for s in (path, RAGGED_SHAPE)}
     library = {
         "dot": lambda o, n: o @ n.transpose(-1, -2),
         "l2sq": lambda o, n: torch.cdist(o, n) ** 2,
         "l1": lambda o, n: torch.cdist(o, n, p=1),
     }
-    for mode in ("dot", "l2sq", "l1"):
-        err, tol = 0.0, 0.0
-        for shape, (o, n) in data.items():
-            out = pairwise_kernel(mode, o, n)
-            ref = pairwise_ref(mode, o, n)
-            torch.cuda.synchronize()
-            e = float((out - ref).abs().max())
-            t = TOL_REL * max(1.0, float(ref.abs().max()))
-            print(f"  pairwise {mode:4s} {shape}: max_abs_err {e:.3e} (tol {t:.3e})")
-            check(out.shape == ref.shape and math.isfinite(e) and e <= t,
-                  f"pairwise {mode} {shape} disagrees: {e} > {t}")
-            err, tol = max(err, e), max(tol, t)
-        G, B, K, D = path
-        o, n = data[path]
+
+    def timed(mode, shape, o, n, plain_reps):
+        G, B, K, D = shape
         tm = timings(torch, lambda: pairwise_kernel(mode, o, n),
-                     lambda: pairwise_ref(mode, o, n), lambda: library[mode](o, n))
+                     lambda: pairwise_ref(mode, o, n), lambda: library[mode](o, n),
+                     plain_reps=plain_reps)
         n_bytes = 4 * G * (B * D + K * D + B * K)
         n_ops = {"dot": 2 * B * K * D,
                  "l2sq": 2 * B * K * D + 2 * (B + K) * D + 3 * B * K,
                  "l1": 3 * B * K * D}[mode] * G
         b_ms, b_by = bound(n_bytes, n_ops)
-        rows.append(dict(name=f"pairwise_{mode}", source="src/repro_torch/csrc/pairwise.cu",
-                         replaces=TPU_KERNEL["pairwise"], max_abs_err=err, tol=tol,
-                         bound_ms=b_ms, bound_by=b_by, shape=f"{G}x{B}x{K}x{D}", **tm))
+        return dict(bound_ms=b_ms, bound_by=b_by, shape=f"{G}x{B}x{K}x{D}", **tm)
+
+    for mode in ("dot", "l2sq", "l1"):
+        err, tol = 0.0, 0.0
+        shapes = dict(data)
+        if mode == "l1":
+            shapes[evals] = operands(evals)
+        for shape, (o, n) in shapes.items():
+            out = pairwise_kernel(mode, o, n)
+            ref = pairwise_ref(mode, o, n)  # at eval's shape it builds 2 x 12 GB
+            e, t = _max_err(torch, out, ref)
+            print(f"  pairwise {mode:4s} {shape}: max_abs_err {e:.3e} (tol {t:.3e})")
+            check(out.shape == (shape[0], shape[1], shape[2]) and math.isfinite(e)
+                  and e <= t, f"pairwise {mode} {shape} disagrees: {e} > {t}")
+            err, tol = max(err, e), max(tol, t)
+        row = dict(name=f"pairwise_{mode}", source="src/repro_torch/csrc/pairwise.cu",
+                   replaces=TPU_KERNEL["pairwise"], max_abs_err=err, tol=tol,
+                   **timed(mode, path, *data[path], 20))
+        if mode == "l1":
+            row["other_shapes"] = {"eval": timed(mode, evals, *shapes[evals], 2)}
+            print(f"  pairwise_l1 at eval's shape {evals}: {_fmt(row['other_shapes']['eval'])}")
+        rows.append(row)
+    return rows
+
+
+def check_l1_bwd(torch, dev, gen):
+    """Both products of the l1 backward against the plain ``l1_grads_ref``,
+    each timed alone at the training path's shape: the kernel, the plain
+    version asked for that product only, and the yardstick, ATen's cdist
+    backward, which is the same function for p = 1: d_o = _cdist_backward(g,
+    o, n, 1, cdist), d_n the same with the roles swapped and g, cdist
+    transposed."""
+    from repro_torch.kernels.kge_score.ops import l1_bwd_kernel
+    from repro_torch.kernels.kge_score.ref import l1_grads_ref
+
+    path = PATH_SHAPE
+    errs = {"l1_bwd_do": (0.0, 0.0), "l1_bwd_dn": (0.0, 0.0)}
+    data = {}
+    for shape in L1_BWD_SHAPES:
+        G, B, K, D = shape
+        o = torch.randn(G, B, D, generator=gen).to(dev)
+        n = torch.randn(G, K, D, generator=gen).to(dev)
+        g = torch.randn(G, B, K, generator=gen).to(dev)
+        data[shape] = (o, n, g)
+        got = l1_bwd_kernel(o, n, g)
+        want = l1_grads_ref(o, n, g)
+        for name, a, b in zip(errs, got, want):
+            e, t = _max_err(torch, a, b)
+            print(f"  {name} {shape}: max_abs_err {e:.3e} (tol {t:.3e})")
+            check(a.shape == b.shape and math.isfinite(e) and e <= t,
+                  f"{name} {shape} disagrees: {e} > {t}")
+            errs[name] = (max(errs[name][0], e), max(errs[name][1], t))
+
+    G, B, K, D = path
+    o, n, g = data[path]
+    cd = torch.cdist(o, n, p=1)
+    gt, cdt = g.transpose(-1, -2).contiguous(), cd.transpose(-1, -2).contiguous()
+    cdist_bwd = torch.ops.aten._cdist_backward
+    library = {"l1_bwd_do": lambda: cdist_bwd(g, o, n, 1.0, cd),
+               "l1_bwd_dn": lambda: cdist_bwd(gt, n, o, 1.0, cdt)}
+    need = {"l1_bwd_do": dict(need_dn=False), "l1_bwd_dn": dict(need_do=False)}
+    want = dict(zip(errs, l1_grads_ref(o, n, g)))
+    rows = []
+    for name in errs:
+        lib_err, _ = _max_err(torch, library[name](), want[name])
+        print(f"  {name}: _cdist_backward vs plain max_abs_err {lib_err:.3e}")
+        tm = timings(torch, lambda: l1_bwd_kernel(o, n, g, **need[name]),
+                     lambda: l1_grads_ref(o, n, g, **need[name]), library[name])
+        out = B * D if name == "l1_bwd_do" else K * D
+        b_ms, b_by = bound(4 * G * (B * D + K * D + B * K + out), 3 * G * B * K * D)
+        rows.append(dict(name=name, source="src/repro_torch/csrc/l1_bwd.cu",
+                         replaces=TPU_KERNEL[name], max_abs_err=errs[name][0],
+                         tol=errs[name][1], bound_ms=b_ms, bound_by=b_by,
+                         shape=f"{G}x{B}x{K}x{D}", library_err=lib_err, **tm))
     return rows
 
 
@@ -180,30 +280,33 @@ def _dedup_ids(torch, gen, n, n_rows):
     return ids.to(torch.int32)
 
 
-def path_batch_ids(torch, np, dev):
-    """The entity and relation ids one FB15k main-path step hands the dedup
-    kernel: a JointSampler batch on the full-scale synthetic graph, whose
-    ids are Zipf-skewed (one relation fills 100-140 of 1024 slots)."""
+def fb15k_config(kg, model):
     import dataclasses
 
     from repro_torch.configs import FB15K
+
+    return dataclasses.replace(FB15K, model=model, n_entities=kg.n_entities,
+                               n_relations=kg.n_relations)
+
+
+def path_batch_ids(torch, np, dev, kg):
+    """The entity and relation ids one FB15k main-path step hands the dedup
+    kernel: a JointSampler batch on the full-scale synthetic graph, whose
+    ids are Zipf-skewed (one relation fills 100-140 of 1024 slots)."""
     from repro_torch.core import kge_model as K
     from repro_torch.core.sampling import JointSampler
-    from repro_torch.data.kg_synth import fb15k_like
 
-    kg = fb15k_like(scale=1.0, seed=0)
-    cfg = dataclasses.replace(FB15K, n_entities=kg.n_entities,
-                              n_relations=kg.n_relations)
+    cfg = fb15k_config(kg, "transe_l2")
     batch = JointSampler(kg.train, cfg.n_entities, cfg, np.random.default_rng(0)).sample()
     ws = K.dense_step_batch(K.batch_to_device(batch, dev))
     return ws["ent_ids"].to(torch.int32), ws["rel_ids"].to(torch.int32)
 
 
-def check_dedup(torch, np, dev, gen):
+def check_dedup(torch, np, dev, gen, kg):
     from repro_torch.kernels.sparse_adagrad.ops import dedup_aggregate
     from repro_torch.kernels.sparse_adagrad.ref import dedup_aggregate_ref
 
-    ent, rel = path_batch_ids(torch, np, dev)
+    ent, rel = path_batch_ids(torch, np, dev, kg)
     cases = {"entity": ent, "relation": rel,
              "entity_pads": _dedup_ids(torch, gen, 2560, 14951),
              "relation_pads": _dedup_ids(torch, gen, 1024, 1345)}
@@ -295,17 +398,15 @@ def check_update(torch, dev, gen):
 # ---------------------------------------------------------------------------
 # phase 4: a few dim-400 steps on a small graph, card vs CPU
 # ---------------------------------------------------------------------------
-def check_agreement(torch, np, dev):
+def check_agreement(torch, np, dev, model):
     import dataclasses
 
-    from repro_torch.configs import FB15K
     from repro_torch.core import kge_model as K
     from repro_torch.core.sampling import JointSampler
     from repro_torch.data.kg_synth import fb15k_like
 
     kg = fb15k_like(scale=0.05, seed=1)
-    cfg = dataclasses.replace(FB15K, n_entities=kg.n_entities,
-                              n_relations=kg.n_relations, batch_size=256,
+    cfg = dataclasses.replace(fb15k_config(kg, model), batch_size=256,
                               neg_sample_size=64)
     steps = 3
     states = {d: K.init_state(cfg, torch.Generator().manual_seed(1), overlap=True,
@@ -318,27 +419,49 @@ def check_agreement(torch, np, dev):
             states[d], m = K.train_step(cfg, states[d], K.batch_to_device(batch, d))
             losses[d].append(float(m["loss"]))
     for d in states:
-        states[d] = K.flush_state(cfg, states[d])
+        K.flush_state(cfg, states[d])
     got, want = K.state_to_arrays(states[dev]), K.state_to_arrays(states["cpu"])
-    print(f"  losses card {losses[dev]} cpu {losses['cpu']}")
+    print(f"  {model}: losses card {losses[dev]} cpu {losses['cpu']}")
     check(np.allclose(losses[dev], losses["cpu"], rtol=1e-5, atol=1e-5),
-          "card and CPU losses disagree")
+          f"{model}: card and CPU losses disagree")
     # Adagrad's first step is ~+-lr for any nonzero grad: an entry whose grad
     # is near zero may flip; allow 0.1% of entries, by at most 2 lr steps
     for name in ("entity", "ent_gsq", "r_emb", "rel_gsq"):
         diff = np.abs(got[name] - want[name])
         off = float((diff > 1e-5 + 1e-5 * np.abs(want[name])).mean())
-        print(f"  {name}: max diff {diff.max():.3e}, share off {off:.2e}")
+        print(f"  {model} {name}: max diff {diff.max():.3e}, share off {off:.2e}")
         check(off <= 1e-3 and diff.max() <= 2 * cfg.lr * steps,
-              f"card and CPU {name} disagree")
+              f"{model}: card and CPU {name} disagree")
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path
+# phases 5 and 6: the training paths
 # ---------------------------------------------------------------------------
-def run_main_path(torch, np, steps):
+class _Tee:
+    """Standard output that is also kept, to read the run's eval lines."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_path(torch, np, model, extra, timed_from, hooks=()):
+    """``python -m repro_torch.launch.train --dataset fb15k --model <model>``
+    for MAIN_PATH_STEPS steps with launch counts set to 0 just before; the
+    loss must fall and the tables stay finite. Returns the launches, a
+    summary (step time over steps timed_from+1..150, device time and busy
+    share from a torch.profiler window of steps 161..180), the final state
+    and what the run printed."""
     from repro_torch.kernels import build
     from repro_torch.launch import engine, train
+
+    steps = MAIN_PATH_STEPS
 
     class Window(engine.Hook):
         """Device-synchronised wall time of steps ``a+1..b``; with
@@ -365,14 +488,19 @@ def run_main_path(torch, np, steps):
                     self.prof.stop()
 
     metrics = engine.MetricsHook(("loss", "pos_score", "neg_score", "pend_dropped"))
-    timing = Window(20, steps - 50)  # steady state, untraced
+    timing = Window(timed_from, steps - 50)  # steady state, untraced
     traced = Window(steps - 40, steps - 20, profile=True)
+    tee = _Tee(sys.stdout)
     build.reset_launches()
     t0 = time.perf_counter()
-    cfg, state = train.main(["--dataset", "fb15k", "--model", "transe_l2",
-                             "--steps", str(steps), "--log-every", "50"],
-                            hooks=[metrics, timing, traced])
-    torch.cuda.synchronize()
+    sys.stdout = tee
+    try:
+        cfg, state = train.main(["--dataset", "fb15k", "--model", model, "--steps",
+                                 str(steps), "--log-every", "50", *extra],
+                                hooks=[metrics, timing, traced, *hooks])
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout = tee.out
     wall = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     hist = metrics.history
@@ -383,10 +511,10 @@ def run_main_path(torch, np, steps):
     kern = [e for e in traced.prof.key_averages() if _self_device_us(e) > 0]
     device_step_ms = sum(_self_device_us(e) for e in kern) / n_traced / 1e3
     busy = device_step_ms / step_ms
-    print(f"  config: {cfg.n_entities} x {cfg.dim} entities, {cfg.n_relations} "
-          f"relations, batch {cfg.batch_size}, k {cfg.neg_sample_size}, "
-          f"groups {cfg.n_neg_groups}, gamma {cfg.gamma}, lr {cfg.lr}, "
-          f"overlap {cfg.overlap_update}")
+    print(f"  config: {cfg.model}, {cfg.n_entities} x {cfg.dim} entities, "
+          f"{cfg.n_relations} relations, batch {cfg.batch_size}, k "
+          f"{cfg.neg_sample_size}, groups {cfg.n_neg_groups}, gamma {cfg.gamma}, "
+          f"lr {cfg.lr}, overlap {cfg.overlap_update}")
     print(f"  loss: first-10 mean {first:.4f} -> last-10 mean {last:.4f}")
     print(f"  step {step_ms:.4f} ms over steps {timing.a + 1}..{timing.b}, "
           f"{cfg.batch_size / step_ms * 1e3:.0f} triplets/s; whole run "
@@ -405,12 +533,128 @@ def run_main_path(torch, np, steps):
     check(tuple(state.entity.shape) == (cfg.n_entities, cfg.dim)
           and bool(torch.isfinite(state.entity).all())
           and bool(torch.isfinite(state.r_emb).all()), "tables not finite")
-    for name in ("pairwise_l2sq", "dedup_aggregate", "fused_update"):
+    summary = dict(step_ms=step_ms, device_ms_per_step=device_step_ms,
+                   device_busy=busy, loss_first10=first, loss_last10=last,
+                   triplets_per_s=cfg.batch_size / step_ms * 1e3,
+                   whole_run_s=wall)
+    return launches, summary, cfg, state, "".join(tee.parts)
+
+
+def check_launched(launches, names, steps):
+    for name in names:
         check(launches[name] >= 2 * steps,
               f"{name} launched {launches[name]} times in {steps} steps")
-    return launches, dict(step_ms=step_ms, device_ms_per_step=device_step_ms,
-                          device_busy=busy, loss_first10=first, loss_last10=last,
-                          triplets_per_s=cfg.batch_size / step_ms * 1e3)
+
+
+def near_ties(torch, np, E, cfg, state, test, fm, j):
+    """For rank ``j`` of ``E.ranks_against_all(cfg, state, test, fm)`` (the
+    tail-side ranks of every query, then the head-side ones): the unfiltered
+    candidates whose card score lies within the kernel tolerance of the
+    positive's. Only these can move the rank when the card and the CPU
+    round differently."""
+    q = test[j % len(test)]
+    corrupt = "tail" if j < len(test) else "head"
+    h, r, t = (torch.tensor([int(v)], device=state.entity.device) for v in q)
+    with torch.no_grad():
+        cand = E._candidate_scores(cfg, state, h, r, t, None, corrupt)[0].cpu().numpy()
+        pos = float(E._pos_scores(cfg, state, h, r, t)[0])
+    key = ("t", int(q[0]), int(q[1])) if corrupt == "tail" else ("h", int(q[2]), int(q[1]))
+    cand[list(fm.get(key, ()))] = -np.inf
+    return int((np.abs(cand - pos) <= TOL_REL * max(1.0, abs(pos))).sum())
+
+
+def run_l1_path(torch, np, dev, kg):
+    """Phase 6: TransE_l1 through train.py with eval and checkpoints, then
+    the checks on what it left behind, then a resumed run."""
+    from repro_torch.common.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.core import eval as E
+    from repro_torch.core import kge_model as K
+    from repro_torch.launch import engine, train
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ckpt = ["--ckpt-dir", str(CKPT_DIR), "--save-every", "100"]
+    # the step time is taken after the save at step 100
+    launches, summary, cfg, state, out = run_path(
+        torch, np, "transe_l1", ["--eval", "--eval-n", "2000", *ckpt], 100)
+    check_launched(launches, ("pairwise_l1", "l1_bwd_do", "l1_bwd_dn",
+                              "dedup_aggregate", "fused_update"), MAIN_PATH_STEPS)
+
+    evals = re.findall(r"eval: MRR (\S+) \| MR (\S+) \| Hit@1 (\S+) \| Hit@3 (\S+) "
+                       r"\| Hit@10 (\S+) \(n=(\d+)\)", out)
+    check(len(evals) == 1, f"expected one eval line, got {len(evals)}")
+    final = [float(x) for x in evals[0]]
+    check(all(math.isfinite(x) for x in final) and final[5] == 4000,
+          f"eval metrics not finite or not 2 x 2000 ranks: {evals[0]}")
+    check(latest_step(str(CKPT_DIR)) == MAIN_PATH_STEPS,
+          f"latest checkpoint {latest_step(str(CKPT_DIR))}, not {MAIN_PATH_STEPS}")
+
+    # the state came back flushed by the final eval; rank against a fresh one
+    fm = E.build_filter_map(kg.triplets)
+    fresh = K.init_state(cfg, torch.Generator().manual_seed(0), overlap=True, device=dev)
+    mrr = {name: E.metrics_from_ranks(E.ranks_against_all(
+        cfg, st, kg.test[:256], filter_map=fm)).mrr
+        for name, st in (("trained", state), ("fresh", fresh))}
+    print(f"  filtered MRR on 256 test queries: trained {mrr['trained']:.4f}, "
+          f"fresh {mrr['fresh']:.4f}")
+    check(mrr["trained"] > mrr["fresh"], "training did not raise the MRR")
+
+    # card (pairwise kernel) vs CPU (plain version) from the same tables
+    test = kg.test[:128]
+    t0 = time.perf_counter()
+    card = E.ranks_against_all(cfg, state, test, filter_map=fm)
+    cpu_state = K.state_from_arrays(cfg, K.state_to_arrays(state), device="cpu")
+    cpu = E.ranks_against_all(cfg, cpu_state, test, filter_map=fm, chunk=32)
+    diff = np.abs(card - cpu)
+    ties = {int(j): near_ties(torch, np, E, cfg, state, test, fm, int(j))
+            for j in np.flatnonzero(diff)}
+    queries = float((diff.reshape(2, -1) == 0).all(0).mean())
+    print(f"  filtered ranks of {len(test)} test queries, card vs CPU: "
+          f"{float((diff == 0).mean()):.2%} of ranks and {queries:.2%} of queries "
+          f"(both sides) equal; unequal ranks (index: |diff|, near-ties) "
+          f"{ {j: (int(diff[j]), n) for j, n in ties.items()} } "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(all(diff[j] <= n for j, n in ties.items()),
+          "card and CPU ranks differ where no near-tie explains it")
+
+    # the checkpoint of step 200 holds the state the run ended with (flushed
+    # by the save), and restores on the card bit for bit
+    def leaves(st):  # the checkpoint's leaves: int32 step and ids
+        return {k: v for k, v in K.state_to_arrays(st).items() if v is not None}
+
+    def equal(x, y):
+        return set(x) == set(y) and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in x)
+
+    saved = CKPT_DIR / f"step_{MAIN_PATH_STEPS:010d}"
+    files = {p.stem: np.load(p) for p in saved.glob("*.npy")}
+    same = equal(files, leaves(state))
+    restored = equal(files, leaves(restore_checkpoint(str(CKPT_DIR), K.init_state(
+        cfg, torch.Generator().manual_seed(1), overlap=True, device=dev),
+        step=MAIN_PATH_STEPS)))
+    print(f"  {saved.name} holds the final state bit for bit: {same} "
+          f"({sorted(files)}); restored on the card bit for bit: {restored}")
+    check(same and restored, "the checkpoint does not hold or restore the final state")
+
+    class First(engine.Hook):
+        i = None
+
+        def on_step(self, i, state, metrics, stats):
+            self.i = self.i or i
+
+    first = First()
+    train.main(["--dataset", "fb15k", "--model", "transe_l1", "--steps",
+                str(RESUME_STEPS), "--log-every", "5", "--resume", *ckpt],
+               hooks=[first])
+    print(f"  resumed run's first step {first.i}, latest checkpoint "
+          f"{latest_step(str(CKPT_DIR))}")
+    check(first.i == MAIN_PATH_STEPS + 1, "the resumed run did not start after step 200")
+    check(latest_step(str(CKPT_DIR)) == RESUME_STEPS, "the resumed run did not save")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    summary.update(eval_mrr=final[0], eval_mr=final[1], eval_hits10=final[4],
+                   mrr_256_trained=mrr["trained"], mrr_256_fresh=mrr["fresh"],
+                   ranks_card_cpu_equal=float((diff == 0).mean()),
+                   queries_card_cpu_equal=queries)
+    return launches, summary
 
 
 def main() -> int:
@@ -428,6 +672,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import numpy as np
 
+    from repro_torch.data.kg_synth import fb15k_like
     from repro_torch.kernels import build
 
     # fp32 everywhere: the plain versions' matmuls must not drop to TF32
@@ -448,29 +693,40 @@ def main() -> int:
     print(f"  built {len(paths)} libraries in {time.perf_counter() - t0:.2f} s")
 
     print("== 3. kernels vs plain versions")
+    kg = fb15k_like(scale=1.0, seed=0)
     gen = torch.Generator().manual_seed(0)
-    rows = check_pairwise(torch, dev, gen) + check_dedup(torch, np, dev, gen) \
-        + check_update(torch, dev, gen)
+    rows = check_pairwise(torch, dev, gen) + check_l1_bwd(torch, dev, gen) \
+        + check_dedup(torch, np, dev, gen, kg) + check_update(torch, dev, gen)
     for r in rows:
         print(f"  {r['name']:16s} {r['shape']:>18s}: {_fmt(r)}  err "
               f"{r['max_abs_err']:.2e} <= {r['tol']:.2e}")
 
     print("== 4. card vs CPU, three dim-400 steps at batch 256, k 64")
-    check_agreement(torch, np, dev)
+    for model in ("transe_l2", "transe_l1"):
+        check_agreement(torch, np, dev, model)
 
-    print(f"== 5. main path: FB15k TransE_l2, {MAIN_PATH_STEPS} steps")
-    launches, path = run_main_path(torch, np, MAIN_PATH_STEPS)
+    print(f"== 5. TransE_l2 path: FB15k, {MAIN_PATH_STEPS} steps")
+    l2_launches, l2_path, *_ = run_path(torch, np, "transe_l2", [], 20)
+    check_launched(l2_launches, ("pairwise_l2sq", "dedup_aggregate", "fused_update"),
+                   MAIN_PATH_STEPS)
+
+    print(f"== 6. TransE_l1 path: FB15k, {MAIN_PATH_STEPS} steps, eval, "
+          f"checkpoint, resume to {RESUME_STEPS}")
+    l1_launches, l1_path = run_l1_path(torch, np, dev, kg)
 
     kernels = []
     for r in rows:
+        by_path = {"transe_l2": l2_launches[r["name"]],
+                   "transe_l1": l1_launches[r["name"]]}
         kernels.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
-            launches=launches[r["name"]], max_abs_err=r["max_abs_err"], tol=r["tol"],
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=r["max_abs_err"], tol=r["tol"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], event_ms=r["event_ms"],
             shape=r["shape"],
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {})))
-    print(json.dumps({"main_path": path}))
+    print(json.dumps({"paths": {"transe_l2": l2_path, "transe_l1": l1_path}}))
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -207,13 +207,19 @@ def dense_step_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def flush_state(cfg: KGEConfig, state: KGEState) -> KGEState:
-    """Apply any pending (deferred) entity update — call before eval/save."""
+    """Apply any pending (deferred) entity update — call before eval/save.
+
+    In place, like every update of the port: the tables change and ``state``
+    gets empty pend buffers, so a training loop that goes on with the same
+    state object does not apply the flushed grads a second time. Returns
+    ``state``.
+    """
     if state.pend_ids is None:
         return state
     ent = DenseStore(state.entity, state.ent_gsq, state.pend_ids,
                      state.pend_grads, lr=cfg.lr, defer=True).flush()
-    return dataclasses.replace(state, entity=ent.table, ent_gsq=ent.gsq,
-                               pend_ids=ent.pend_ids, pend_grads=ent.pend_grads)
+    state.pend_ids, state.pend_grads = ent.pend_ids, ent.pend_grads
+    return state
 
 
 # --------------------------------------------------------------------------

@@ -195,7 +195,9 @@ def finish_neg_scores(
     """psum partial pairwise reductions and convert to scores."""
     s = ctx.psum(partial)
     if model in ("transe_l2", "rotate", "transr"):
-        return gamma - torch.sqrt(torch.clamp_min(s, 0.0) + 1e-12)
+        # max(s, 0) written so that its gradient at s == 0 is 0.5, as
+        # jnp.maximum's (torch.clamp_min passes 1 there); same value bit for bit
+        return gamma - torch.sqrt(0.5 * (s + s.abs()) + 1e-12)
     if model == "transe_l1":
         return gamma - s
     return s  # dot-family

@@ -1,26 +1,50 @@
-"""Dispatch and autograd for the kge_score kernel.
+"""Dispatch and autograd for the kge_score kernels.
 
 ``pairwise_scores`` is the reduction core/scores.negative_score calls. The
-device of the tensors decides the path: on a CUDA tensor it launches the
-hand-written kernel (csrc/pairwise.cu) or raises; on a CPU tensor it runs
-the plain version (ref.py).
+device of the tensors decides the path: on CUDA tensors it launches the
+hand-written kernels (csrc/pairwise.cu forward, csrc/l1_bwd.cu l1 backward)
+or raises; on CPU tensors it runs the plain versions (ref.py). Both devices
+go through the same ``autograd.Function``.
 
 Backward (``_Pairwise``), as in the reference's custom VJP (JAX ops.py:64-84):
   dot  : d_o = g @ negs ; d_n = g.T @ o                 (plain matmuls)
   l2sq : d_o = 2 (o * rowsum(g) - g @ negs) ; symmetric (plain matmuls)
-  l1   : the backward kernels (kge_score.py:119, l1_bwd_pallas) are not
-         ported yet; on a CUDA tensor the backward raises, on the CPU l1 goes
-         through the plain version's autograd.
+  l1   : d_o = sum_k g sign(o - n_k) ; d_n = -sum_b g sign(o_b - n)
+         (``l1_bwd_kernel``; the plain ``l1_grads_ref`` on the CPU). Only the
+         products autograd asks for are computed.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.kge_score.ref import MODES, pairwise_ref
+from repro_torch.kernels.kge_score.ref import MODES, l1_grads_ref, pairwise_ref
 
 _MODE_ID = {"dot": 0, "l2sq": 1, "l1": 2}
+
+
+def _as_groups(what: str, o: torch.Tensor, negs: torch.Tensor, *more: torch.Tensor):
+    """The checks every kge_score kernel makes: one CUDA device, float32,
+    contiguous, (B, D) x (K, D) or (G, B, D) x (G, K, D). Returns the
+    operands with a leading group dimension."""
+    ts = (o, negs, *more)
+    if not (o.is_cuda and all(t.device == o.device for t in ts)):
+        raise ValueError(f"{what} kernel needs its operands on one CUDA "
+                         f"device, got {[str(t.device) for t in ts]}")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"{what} kernel takes float32, got {[t.dtype for t in ts]}")
+    if o.dim() not in (2, 3) or any(t.dim() != o.dim() for t in ts):
+        raise ValueError(f"{what} kernel takes (B, D) x (K, D) or "
+                         f"(G, B, D) x (G, K, D), got {[tuple(t.shape) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what} kernel takes contiguous operands")
+    o3, n3, *m3 = (t if t.dim() == 3 else t.unsqueeze(0) for t in ts)
+    if n3.shape[0] != o3.shape[0] or n3.shape[2] != o3.shape[2]:
+        raise ValueError(f"shape mismatch {tuple(o.shape)} x {tuple(negs.shape)}")
+    return (o3, n3, *m3)
 
 
 def pairwise_kernel(mode: str, o: torch.Tensor, negs: torch.Tensor) -> torch.Tensor:
@@ -28,22 +52,8 @@ def pairwise_kernel(mode: str, o: torch.Tensor, negs: torch.Tensor) -> torch.Ten
     without the group dimension. fp32, contiguous, on one CUDA device."""
     if mode not in _MODE_ID:
         raise ValueError(mode)
-    if not (o.is_cuda and negs.device == o.device):
-        raise ValueError(f"pairwise kernel needs both operands on one CUDA "
-                         f"device, got {o.device} and {negs.device}")
-    if o.dtype != torch.float32 or negs.dtype != torch.float32:
-        raise TypeError(f"pairwise kernel takes float32, got {o.dtype}, {negs.dtype}")
-    if o.dim() not in (2, 3) or negs.dim() != o.dim():
-        raise ValueError(f"pairwise kernel takes (B, D) x (K, D) or "
-                         f"(G, B, D) x (G, K, D), got {tuple(o.shape)} x "
-                         f"{tuple(negs.shape)}")
-    if not (o.is_contiguous() and negs.is_contiguous()):
-        raise ValueError("pairwise kernel takes contiguous operands")
-    o3 = o if o.dim() == 3 else o.unsqueeze(0)
-    n3 = negs if negs.dim() == 3 else negs.unsqueeze(0)
+    o3, n3 = _as_groups("pairwise", o, negs)
     G, B, D = o3.shape
-    if n3.shape[0] != G or n3.shape[2] != D:
-        raise ValueError(f"shape mismatch {tuple(o.shape)} x {tuple(negs.shape)}")
     K = n3.shape[1]
     out = torch.empty((G, B, K), device=o.device, dtype=torch.float32)
     if out.numel():
@@ -52,6 +62,36 @@ def pairwise_kernel(mode: str, o: torch.Tensor, negs: torch.Tensor) -> torch.Ten
                      torch.cuda.current_stream(o.device).cuda_stream)
         build.LAUNCHES[f"pairwise_{mode}"] += 1
     return out if o.dim() == 3 else out[0]
+
+
+def l1_bwd_kernel(o: torch.Tensor, negs: torch.Tensor, g: torch.Tensor,
+                  need_do: bool = True, need_dn: bool = True
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Launch the CUDA l1 backward: d_o (.., B, D) and d_n (.., K, D) of
+    ``sum(g * pairwise_l1(o, negs))``, each only when asked for (else None).
+    ``g`` is (.., B, K); all fp32, contiguous, on one CUDA device."""
+    o3, n3, g3 = _as_groups("l1_bwd", o, negs, g)
+    G, B, D = o3.shape
+    K = n3.shape[1]
+    if g3.shape != (G, B, K):
+        raise ValueError(f"l1_bwd kernel: g {tuple(g.shape)} does not match "
+                         f"{tuple(o.shape)} x {tuple(negs.shape)}")
+    stream = torch.cuda.current_stream(o.device).cuda_stream
+    out = []
+    # (need, x, y, rows, reduction length, w read transposed, counter)
+    for need, x, y, R, C, trans, name in (
+            (need_do, o3, n3, B, K, 0, "l1_bwd_do"),
+            (need_dn, n3, o3, K, B, 1, "l1_bwd_dn")):
+        if not need:
+            out.append(None)
+            continue
+        d = torch.empty((G, R, D), device=o.device, dtype=torch.float32)
+        if d.numel():
+            build.launch("l1_bwd", x.data_ptr(), y.data_ptr(), g3.data_ptr(),
+                         d.data_ptr(), G, R, C, D, trans, stream)
+            build.LAUNCHES[name] += 1
+        out.append(d if o.dim() == 3 else d[0])
+    return out[0], out[1]
 
 
 class _Pairwise(torch.autograd.Function):
@@ -73,9 +113,12 @@ class _Pairwise(torch.autograd.Function):
             d_o = 2.0 * (o * g.sum(-1, keepdim=True) - g @ negs)
             d_n = 2.0 * (negs * g.sum(-2).unsqueeze(-1) - gt @ o)
             return None, d_o, d_n
-        raise NotImplementedError(
-            "the l1 backward kernels (kge_score.py:119 l1_bwd_pallas) are not "
-            "ported yet: ROADMAP Queue B, next slice (TransE_l1 training)")
+        _, need_do, need_dn = ctx.needs_input_grad
+        # autograd may hand over an expanded (stride-0) g; the kernel reads
+        # it by stride as a contiguous (G, B, K)
+        g = g.contiguous()
+        grads = l1_bwd_kernel if o.is_cuda else l1_grads_ref
+        return (None, *grads(o, negs, g, need_do, need_dn))
 
 
 def pairwise_scores(mode: str, o: torch.Tensor, negs: torch.Tensor) -> torch.Tensor:
@@ -85,6 +128,4 @@ def pairwise_scores(mode: str, o: torch.Tensor, negs: torch.Tensor) -> torch.Ten
     """
     if mode not in MODES:
         raise ValueError(mode)
-    if mode == "l1" and not o.is_cuda:
-        return pairwise_ref(mode, o, negs)
     return _Pairwise.apply(mode, o.contiguous(), negs.contiguous())

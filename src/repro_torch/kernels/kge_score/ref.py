@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the kge_score kernel: the CPU path and the
-kernel's oracle on the card.
+"""Plain PyTorch versions of the kge_score kernels: the CPU path and the
+kernels' oracle on the card.
 
 Contract (identical to core/scores.pairwise_scores), with any leading
 (group) dimensions shared by both operands:
@@ -28,9 +28,12 @@ def pairwise_ref(mode: str, o: torch.Tensor, negs: torch.Tensor) -> torch.Tensor
     raise ValueError(mode)
 
 
-def l1_grads_ref(o, negs, g):
-    """VJP oracle for l1: d_o (..., B, D), d_negs (..., K, D)."""
+def l1_grads_ref(o, negs, g, need_do=True, need_dn=True):
+    """VJP of l1 for a cotangent g (..., B, K): d_o (..., B, D), d_negs
+    (..., K, D), each only when asked for (else None). It builds the
+    (..., B, K, D) sign tensor that the kernel (csrc/l1_bwd.cu) never
+    materialises."""
     s = torch.sign(o.unsqueeze(-2) - negs.unsqueeze(-3))  # (..., B, K, D)
-    d_o = torch.einsum("...bk,...bkd->...bd", g, s)
-    d_n = -torch.einsum("...bk,...bkd->...kd", g, s)
+    d_o = torch.einsum("...bk,...bkd->...bd", g, s) if need_do else None
+    d_n = -torch.einsum("...bk,...bkd->...kd", g, s) if need_dn else None
     return d_o, d_n

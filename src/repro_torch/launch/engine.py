@@ -2,8 +2,9 @@
 
 A port of the single-trainer part of the JAX package's launch/engine.py:
 
-    state = train_loop(step_fn, state, make_batch, n_steps,
-                       hooks=[LoggingHook(...), MetricsHook(...)])
+    state = train_loop(step_fn, state, make_batch, n_steps, start=start,
+                       hooks=[LoggingHook(...), CheckpointHook(...),
+                              EvalHook(...)])
 
 ``make_batch() -> (batch, stats)`` runs on the Prefetcher's producer thread,
 overlapping host-side sampling (and the host-to-device copy of the batch)
@@ -13,8 +14,11 @@ loop never waits for the card: only hooks read metric values, and only at
 their cadence (``LoggingHook`` every ``log_every`` steps; ``MetricsHook``
 keeps the tensors and reads them when its history is asked for).
 
-Hooks see every step after it is issued: ``on_step(i, state, metrics,
-stats)`` with ``i`` the 1-based step number, then ``on_end(i, state)`` once.
+Hooks see every step after it is issued, ``on_step(i, state, metrics,
+stats)`` with ``i`` the 1-based step number, then ``on_end(i, state)``
+once. A hook that flushes the deferred update (T5) does so in place on the
+loop's state (``kge_model.flush_state``), so no hook hands back a
+replacement state.
 """
 
 from __future__ import annotations
@@ -45,13 +49,15 @@ class LoggingHook(Hook):
 
     If the step metrics carry ``pend_dropped`` > 0 (capacity-bounded T5
     defer losing updates), the first occurrence raises a one-shot
-    ``RuntimeWarning`` and the count is appended to every log line.
+    ``RuntimeWarning`` and the count is appended to every log line. Rates
+    count the steps after ``start`` (a resumed run's first step).
     """
 
     def __init__(self, log_every: int = 100, batch_size: int = 0,
-                 print_fn: Callable[[str], None] = print):
+                 start: int = 0, print_fn: Callable[[str], None] = print):
         self.log_every = max(1, log_every)
         self.batch_size = batch_size
+        self.start = start
         self.print_fn = print_fn
         self.t0 = None
         self.pend_dropped = 0.0
@@ -63,10 +69,11 @@ class LoggingHook(Hook):
         if i % self.log_every:
             return
         loss = float(metrics["loss"])  # waits for the step's device work
+        done = i - self.start
         dt = max(time.perf_counter() - self.t0, 1e-9)
-        line = f"step {i:6d} loss {loss:8.4f} ({i/dt:6.1f} steps/s"
+        line = f"step {i:6d} loss {loss:8.4f} ({done/dt:6.1f} steps/s"
         if self.batch_size:
-            line += f", {i*self.batch_size/dt:9.0f} triplets/s"
+            line += f", {done*self.batch_size/dt:9.0f} triplets/s"
         if "pend_dropped" in metrics:
             self.pend_dropped = float(metrics["pend_dropped"])
             if self.pend_dropped > 0 and not self._warned_pend:
@@ -79,6 +86,55 @@ class LoggingHook(Hook):
             if self.pend_dropped > 0:
                 line += f", pend_drop {self.pend_dropped:.0f}"
         self.print_fn(line + ")")
+
+
+class CheckpointHook(Hook):
+    """Periodic saves; the final save is skipped if the last periodic save
+    already covers the final step (no redundant duplicate checkpoint).
+
+    ``flush_fn`` (``kge_model.flush_state``) is applied before each save so
+    deferred (T5) gradients land in the checkpoint.
+    """
+
+    def __init__(self, ckpt_dir: str, save_every: int, flush_fn: Callable):
+        self.ckpt_dir = ckpt_dir
+        self.save_every = save_every
+        self.flush_fn = flush_fn
+        self.last_saved = -1
+
+    def _save(self, i, state):
+        from repro_torch.common.checkpoint import save_checkpoint
+
+        save_checkpoint(self.ckpt_dir, i, self.flush_fn(state))
+        self.last_saved = i
+
+    def on_step(self, i, state, metrics, stats):
+        if self.save_every and i % self.save_every == 0:
+            self._save(i, state)
+
+    def on_end(self, i, state):
+        if self.last_saved != i:
+            self._save(i, state)
+
+
+class EvalHook(Hook):
+    """Run ``eval_fn(state)`` after the loop and, with ``eval_every``, also
+    periodically during training (MRR-vs-steps curves). The final eval is
+    skipped if a periodic eval already covered the final step."""
+
+    def __init__(self, eval_fn: Callable, eval_every: int = 0):
+        self.eval_fn = eval_fn
+        self.eval_every = eval_every
+        self.last_eval = -1
+
+    def on_step(self, i, state, metrics, stats):
+        if self.eval_every and i % self.eval_every == 0:
+            self.eval_fn(state)
+            self.last_eval = i
+
+    def on_end(self, i, state):
+        if self.last_eval != i:
+            self.eval_fn(state)
 
 
 class MetricsHook(Hook):
@@ -106,23 +162,24 @@ class MetricsHook(Hook):
         return {k: [float(v) for v in vals] for k, vals in self._raw.items()}
 
 
-def train_loop(step_fn, state, make_batch, n_steps: int, *,
+def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
                hooks: Sequence[Hook] = ()):
-    """Drive ``step_fn`` for steps 1..``n_steps``.
+    """Drive ``step_fn`` from ``start`` (exclusive) to ``n_steps``.
 
     make_batch() -> (batch, stats); stats may be None. Batches are produced
     ahead on a host thread.
     """
-    src = Prefetcher(make_batch)
-    i = 0
-    try:
-        for i, (batch, stats) in zip(range(1, n_steps + 1), src):
-            with telemetry.span("engine/step"):
-                state, metrics = step_fn(state, batch)
-            for h in hooks:
-                h.on_step(i, state, metrics, stats)
-    finally:
-        src.close()
+    i = start
+    if start < n_steps:
+        src = Prefetcher(make_batch)
+        try:
+            for i, (batch, stats) in zip(range(start + 1, n_steps + 1), src):
+                with telemetry.span("engine/step"):
+                    state, metrics = step_fn(state, batch)
+                for h in hooks:
+                    h.on_step(i, state, metrics, stats)
+        finally:
+            src.close()
     for h in hooks:
         h.on_end(i, state)
     return state

@@ -1,7 +1,10 @@
 """KGE training driver of the port (the paper's workload), single machine.
 
     PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
-        --model transe_l2 --steps 200
+        --model transe_l1 --steps 200 --eval --eval-n 2000 \\
+        --ckpt-dir build/ckpt --save-every 100
+    PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
+        --model transe_l1 --steps 300 --ckpt-dir build/ckpt --resume
 
 runs on the GPU through the port's CUDA kernels; ``--device cpu`` runs the
 same code with the kernels' plain PyTorch versions. Without ``--device cpu``
@@ -12,9 +15,15 @@ Switchable as in the JAX package's launch/train.py:
     --neg-deg-ratio 0.5           (T2)
     --no-overlap                  (T5 off; joint mode defers entity updates
                                    by default)
+    --eval, --eval-every K        (filtered MRR/Hit@k on the first --eval-n
+                                   test triplets, after training and every K
+                                   steps; protocol 2 above 60,000 entities)
+    --ckpt-dir, --save-every K, --resume
+                                  (checkpoints in the JAX package's layout,
+                                   every K steps and at the end; resume from
+                                   the latest)
 
-Not ported yet, and refused with the ROADMAP item that ports them: eval
-(--eval, --eval-every), checkpoints (--ckpt-dir, --resume), Hogwild
+Not ported yet, and refused with the ROADMAP item that ports them: Hogwild
 (--trainers/--samplers > 1), the distributed path (--distributed,
 --pipeline-depth, --push-every) and telemetry files (--metrics-out,
 --trace-out).
@@ -32,10 +41,6 @@ import torch
 
 # flag -> ROADMAP item that ports it
 NOT_PORTED = {
-    "eval": "Queue A5 (eval)",
-    "eval_every": "Queue A5 (eval)",
-    "ckpt_dir": "Queue A5 (checkpoint)",
-    "resume": "Queue A5 (checkpoint)",
     "trainers": "Queue A6 (Hogwild)",
     "samplers": "Queue A6 (Hogwild)",
     "distributed": "Queue A7 (distributed)",
@@ -64,11 +69,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
-    # accepted so that the reference's command lines fail loudly, not oddly
     ap.add_argument("--eval", action="store_true")
-    ap.add_argument("--eval-every", type=int, default=0)
+    ap.add_argument("--eval-n", type=int, default=2000)
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="periodic eval every K steps; also enables the "
+                         "final eval")
     ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--save-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
+    # accepted so that the reference's command lines fail loudly, not oddly
     ap.add_argument("--trainers", type=int, default=1)
     ap.add_argument("--samplers", type=int, default=1)
     ap.add_argument("--distributed", action="store_true")
@@ -111,13 +120,17 @@ def make_config(args):
 
 def train(args, hooks: Sequence = ()):
     """Single-machine training; returns ``(cfg, state)``. ``hooks`` run after
-    the entry point's own LoggingHook."""
+    the entry point's own logging, checkpoint and eval hooks."""
+    from repro_torch.common.checkpoint import latest_step, restore_checkpoint
     from repro_torch.common.device import resolve_device
+    from repro_torch.core import eval as E
     from repro_torch.core.kge_model import (
-        batch_to_device, init_state, naive_train_step, train_step,
+        batch_to_device, flush_state, init_state, naive_train_step, train_step,
     )
     from repro_torch.core.sampling import JointSampler, NaiveSampler
-    from repro_torch.launch.engine import LoggingHook, train_loop
+    from repro_torch.launch.engine import (
+        CheckpointHook, EvalHook, LoggingHook, train_loop,
+    )
 
     defaults = build_parser().parse_args([])
     for flag, item in NOT_PORTED.items():
@@ -143,10 +156,35 @@ def train(args, hooks: Sequence = ()):
         sampler = NaiveSampler(kg.train, cfg.n_entities, cfg, rng)
         step = functools.partial(naive_train_step, cfg)
 
-    hooks = [LoggingHook(args.log_every, batch_size=cfg.batch_size), *hooks]
+    start = 0
+    if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        state = restore_checkpoint(args.ckpt_dir, state)
+        start = state.step
+        print(f"resumed from step {start}")
+
+    flush = functools.partial(flush_state, cfg)
+    own = [LoggingHook(args.log_every, batch_size=cfg.batch_size, start=start)]
+    if args.ckpt_dir:
+        own.append(CheckpointHook(args.ckpt_dir, args.save_every, flush))
+    filter_map = {}
+
+    def evaluate(state):
+        flush(state)
+        test = kg.test[: args.eval_n]
+        if cfg.n_entities <= 60_000:
+            if not filter_map:
+                filter_map.update(E.build_filter_map(kg.triplets))
+            ranks = E.ranks_against_all(cfg, state, test, filter_map=filter_map)
+        else:
+            ranks = E.ranks_protocol2(cfg, state, test,
+                                      kg.degrees().astype(np.float64))
+        print("eval:", E.metrics_from_ranks(ranks))
+
+    if args.eval or args.eval_every:
+        own.append(EvalHook(evaluate, eval_every=args.eval_every))
     state = train_loop(step, state,
                        lambda: (batch_to_device(sampler.sample(), dev), None),
-                       args.steps, hooks=hooks)
+                       args.steps, start=start, hooks=[*own, *hooks])
     return cfg, state
 
 

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.kge_score.ops import pairwise_kernel, pairwise_scores
-from repro_torch.kernels.kge_score.ref import pairwise_ref
+from repro_torch.kernels.kge_score.ops import (
+    l1_bwd_kernel, pairwise_kernel, pairwise_scores,
+)
+from repro_torch.kernels.kge_score.ref import l1_grads_ref, pairwise_ref
 from repro_torch.kernels.sparse_adagrad.ops import dedup_aggregate, fused_sparse_adagrad
 from repro_torch.kernels.sparse_adagrad.ref import dedup_aggregate_ref, fused_update_ref
 
@@ -50,7 +52,7 @@ def test_pairwise_kernel_matches_plain(cuda, mode, shape):
     assert float((out - ref).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("mode", ["dot", "l2sq"])
+@pytest.mark.parametrize("mode", ["dot", "l2sq", "l1"])
 def test_pairwise_grads_on_card_match_plain(cuda, mode):
     rng = _rng(1)
     o = torch.tensor(rng.standard_normal((2, 64, 40)), dtype=torch.float32,
@@ -64,11 +66,68 @@ def test_pairwise_grads_on_card_match_plain(cuda, mode):
     torch.testing.assert_close(dn, rn, rtol=2e-4, atol=2e-4)
 
 
-def test_l1_backward_on_card_is_not_ported(cuda):
-    o = torch.ones(4, 3, device=cuda, requires_grad=True)
-    out = pairwise_scores("l1", o, torch.zeros(5, 3, device=cuda))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        out.sum().backward()
+@pytest.mark.parametrize("shape", [(1, 1024, 256, 400), (2, 1000, 250, 300),
+                                   (3, 65, 129, 33), (1, 256, 1024, 400),
+                                   (1, 1, 1, 1)])
+def test_l1_bwd_kernel_matches_plain(cuda, shape):
+    """Both products, at the training path's shape, ragged ones and one with
+    B and K swapped (so both tile shapes run with w read both ways)."""
+    G, B, K, D = shape
+    rng = _rng(2)
+    o = torch.tensor(rng.standard_normal((G, B, D)), dtype=torch.float32, device=cuda)
+    n = torch.tensor(rng.standard_normal((G, K, D)), dtype=torch.float32, device=cuda)
+    g = torch.tensor(rng.standard_normal((G, B, K)), dtype=torch.float32, device=cuda)
+    before = dict(build.LAUNCHES)
+    do, dn = l1_bwd_kernel(o, n, g)
+    ro, rn = l1_grads_ref(o, n, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["l1_bwd_do"] == before["l1_bwd_do"] + 1
+    assert build.LAUNCHES["l1_bwd_dn"] == before["l1_bwd_dn"] + 1
+    for got, want in ((do, ro), (dn, rn)):
+        assert got.shape == want.shape
+        # fp32 sums of B or K terms in another order: 2e-5 of the largest value
+        tol = 2e-5 * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol
+
+
+def test_l1_bwd_kernel_ties_and_requested_grads(cuda):
+    """Exact ties give sign 0; only the asked-for product is launched; an
+    expanded (stride-0) cotangent from a sum goes through."""
+    rng = _rng(3)
+    o = torch.tensor(rng.integers(-2, 3, (2, 40, 24)), dtype=torch.float32, device=cuda)
+    n = torch.tensor(rng.integers(-2, 3, (2, 30, 24)), dtype=torch.float32, device=cuda)
+    n[:, :10] = o[:, :10]
+    g = torch.tensor(rng.standard_normal((2, 40, 30)), dtype=torch.float32, device=cuda)
+    ro, rn = l1_grads_ref(o, n, g)
+    before = dict(build.LAUNCHES)
+    do, dn = l1_bwd_kernel(o, n, g, need_dn=False)
+    assert dn is None and build.LAUNCHES["l1_bwd_dn"] == before["l1_bwd_dn"]
+    torch.testing.assert_close(do, ro, rtol=1e-5, atol=1e-5)
+    o.requires_grad_()
+    pairwise_scores("l1", o, n).sum().backward()  # g = ones, expanded
+    want, _ = l1_grads_ref(o.detach(), n, torch.ones_like(g))
+    torch.testing.assert_close(o.grad, want, rtol=1e-5, atol=1e-5)
+
+
+def test_eval_ranks_on_card_match_cpu(cuda):
+    """Filtered protocol-1 ranks through the pairwise kernel on the card and
+    through the plain version on the CPU, from the same tables."""
+    from repro_torch.common.config import KGEConfig
+    from repro_torch.core import eval as E
+    from repro_torch.core import kge_model as K
+    from repro_torch.data.kg_synth import make_synthetic_kg
+
+    kg = make_synthetic_kg(n_entities=500, n_relations=10, n_edges=5000,
+                           n_clusters=4, seed=0)
+    cfg = KGEConfig(model="transe_l1", n_entities=500, n_relations=10, dim=64)
+    cpu = K.init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = K.state_from_arrays(cfg, K.state_to_arrays(cpu), device=cuda)
+    fm = E.build_filter_map(kg.triplets)
+    before = build.LAUNCHES["pairwise_l1"]
+    got = E.ranks_against_all(cfg, card, kg.test[:100], filter_map=fm)
+    want = E.ranks_against_all(cfg, cpu, kg.test[:100], filter_map=fm, chunk=32)
+    assert build.LAUNCHES["pairwise_l1"] == before + 2
+    assert (got == want).mean() >= 0.99
 
 
 def _dups(rng, n, n_rows):
@@ -130,5 +189,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         pairwise_kernel("dot", o.double(), o.double())
     with pytest.raises(ValueError, match="contiguous"):
         pairwise_kernel("dot", torch.zeros(8, 4, device=cuda).t(), o)
+    g = torch.zeros(4, 4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        l1_bwd_kernel(o, o, torch.zeros(4, 1, device=cuda).expand(4, 4))
+    with pytest.raises(ValueError, match="does not match"):
+        l1_bwd_kernel(o, o, torch.zeros(4, 3, device=cuda))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        l1_bwd_kernel(o, o, g.cpu())
     with pytest.raises(ValueError, match="one CUDA device"):
         dedup_aggregate(torch.zeros(4, dtype=torch.int32, device=cuda), torch.zeros(4, 8))

@@ -131,3 +131,21 @@ def test_losses_and_grads(kind):
     np.testing.assert_allclose(float(tl.detach()), float(jl), **FWD)
     np.testing.assert_allclose(tp.grad.numpy(), np.asarray(jgp), **GRAD)
     np.testing.assert_allclose(tn.grad.numpy(), np.asarray(jgn), **GRAD)
+
+
+@pytest.mark.parametrize("model", ["transe_l2", "rotate", "transr", "transe_l1",
+                                   "distmult"])
+def test_finish_neg_scores_value_and_grad_at_zero(model):
+    """max(s, 0) of the squared-distance models at an exact 0: the value is
+    the same bit for bit and the gradient is jnp.maximum's 0.5."""
+    s = np.array([[0.0, -0.0, -1e-7, 2.5], [0.0, 3.0, -2.0, 1e-30]], np.float32)
+    w = np.array([[1.0, 2.0, 3.0, 4.0], [-1.0, 0.5, 2.0, 1.5]], np.float32)
+    jv, jg = jax.value_and_grad(
+        lambda x: jnp.sum(JS.finish_neg_scores(model, x, 12.0, JS.ShardCtx(None)) * w))(
+            jnp.asarray(s))
+    ts = _t(s)
+    out = TS.finish_neg_scores(model, ts, 12.0, TS.ShardCtx())
+    (out * torch.tensor(w)).sum().backward()
+    want = JS.finish_neg_scores(model, jnp.asarray(s), 12.0, JS.ShardCtx(None))
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(want))
+    np.testing.assert_allclose(ts.grad.numpy(), np.asarray(jg), **GRAD)

@@ -69,7 +69,7 @@ def assert_tables_close(got, want, lr, steps, name):
 
 
 @pytest.mark.parametrize("overlap", [True, False], ids=["t5", "no_t5"])
-@pytest.mark.parametrize("model", ["transe_l2", "distmult", "complex"])
+@pytest.mark.parametrize("model", ["transe_l2", "distmult", "complex", "transe_l1"])
 def test_slice_matches_jax(kg, model, overlap):
     jc, tc = _cfgs(model)
     js = JK.init_state(jc, jax.random.key(0), overlap=overlap)
@@ -166,7 +166,7 @@ def test_cli_refuses_unported_modes():
     from repro_torch.launch import train
 
     for flags, item in ((["--distributed"], "A7"), (["--trainers", "2"], "A6"),
-                        (["--eval"], "A5")):
+                        (["--metrics-out", "m.jsonl"], "A9")):
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--device", "cpu", *flags])
 
