@@ -1,10 +1,14 @@
-"""The step loop of the port's drivers, with behavior injected as hooks.
+"""The step loops of the port's drivers, with behavior injected as hooks.
 
 A port of the single-trainer part of the JAX package's launch/engine.py:
 
     state = train_loop(step_fn, state, make_batch, n_steps, start=start,
                        hooks=[LoggingHook(...), CheckpointHook(...),
                               EvalHook(...)])
+    state = run_loop(step_fn, state, n_steps, hooks=[ThroughputHook(...)])
+
+``run_loop`` is the batch-free loop of the serve driver:
+``step_fn(i, state) -> (state, metrics)`` with the 0-based step index.
 
 ``make_batch() -> (batch, stats)`` runs on the Prefetcher's producer thread,
 overlapping host-side sampling (and the host-to-device copy of the batch)
@@ -137,6 +141,33 @@ class EvalHook(Hook):
             self.eval_fn(state)
 
 
+class ThroughputHook(Hook):
+    """One end-of-run throughput line (serve loops).
+
+    The clock starts at the first step, so set-up time before the loop is
+    not counted. Like the JAX package's hook it reads the host clock and
+    does not wait for the card: a loop that reads a result each step (the
+    serve loop reads its greedy tokens) keeps the two in step.
+    """
+
+    def __init__(self, items_per_step: int = 1, label: str = "steps",
+                 print_fn: Callable[[str], None] = print):
+        self.items_per_step = items_per_step
+        self.label = label
+        self.print_fn = print_fn
+        self.t0 = None
+
+    def on_step(self, i, state, metrics, stats):
+        if self.t0 is None:
+            self.t0 = time.perf_counter()
+
+    def on_end(self, i, state):
+        t0 = self.t0 if self.t0 is not None else time.perf_counter()
+        dt = max(time.perf_counter() - t0, 1e-9)
+        self.print_fn(f"{i} steps in {dt:.2f}s -> "
+                      f"{i * self.items_per_step / dt:.1f} {self.label}/s")
+
+
 class MetricsHook(Hook):
     """Record scalar metrics per step — used by tests, benchmarks and the
     chip smoke run.
@@ -180,6 +211,20 @@ def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
                     h.on_step(i, state, metrics, stats)
         finally:
             src.close()
+    for h in hooks:
+        h.on_end(i, state)
+    return state
+
+
+def run_loop(step_fn, state, n_steps: int, *, hooks: Sequence[Hook] = ()):
+    """Batch-free loop: ``step_fn(i, state) -> (state, metrics)`` for
+    i = 0 .. n_steps - 1; hooks see the 1-based step number."""
+    i = 0
+    for i in range(1, n_steps + 1):
+        with telemetry.span("engine/step"):
+            state, metrics = step_fn(i - 1, state)
+        for h in hooks:
+            h.on_step(i, state, metrics, None)
     for h in hooks:
         h.on_end(i, state)
     return state

@@ -1,0 +1,126 @@
+"""LM serving driver of the port: batched greedy decoding for an ``--arch``
+of the zoo, reduced or full.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --full --batch 4 --prompt-len 32 --gen 16
+
+A port of the JAX package's launch/serve.py: the prompt goes in token by
+token through ``build_serve_step`` to fill the KV caches, then ``--gen``
+tokens are greedy-decoded, through ``run_loop`` and ``ThroughputHook``. The
+prompts are ``np.random.default_rng(seed).integers(0, vocab, (B, T))``, as
+the JAX package makes them; the weights are drawn from a
+``torch.Generator`` seeded with ``--seed``. Without ``--full`` the reduced
+config runs. ``--device`` defaults to cuda and raises without a GPU;
+``--device cpu`` runs the same code on the CPU. This path launches no
+kernel of the port: decode attention is plain PyTorch, as it is plain jnp
+in JAX. Batched prefill through the flash kernel is
+``models.steps.build_prefill_step(model, use_flash=True)``.
+
+Not ported yet, and refused with the ROADMAP item that ports them:
+telemetry files (``--metrics-out``, ``--trace-out``).
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+# flag -> ROADMAP item that ports it
+NOT_PORTED = {
+    "metrics_out": "Queue A9 (benchmarks and telemetry files)",
+    "trace_out": "Queue A9 (benchmarks and telemetry files)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--full", action="store_true", help="full (not reduced) config")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the card) or cpu")
+    # accepted so that the reference's command lines fail loudly, not oddly
+    ap.add_argument("--metrics-out", default="")
+    ap.add_argument("--trace-out", default="")
+    return ap
+
+
+def generate(model, params, tokens: np.ndarray, gen: int, hooks: Sequence = ()
+             ) -> Tuple[np.ndarray, List[torch.Tensor]]:
+    """Feed ``tokens`` (B, T) one position a step, then greedy-decode
+    ``gen`` tokens. Returns the generated ids (B, gen) and the logits of
+    every step (T + gen tensors of (B, 1, padded_vocab); step i's are the
+    next-token logits after position i). The argmax runs over the padded
+    vocab, as in JAX. ``params`` may be the model's cast copy."""
+    from repro_torch.launch.engine import run_loop
+    from repro_torch.models.steps import build_serve_step
+
+    B, T = tokens.shape
+    dev = params["tok_emb"].device
+    prompt = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    caches = model.init_caches(B, T + gen, device=dev)
+    serve = build_serve_step(model)
+    out, step_logits = [], []
+
+    def step(i, carry):
+        logits, caches = carry
+        if i < T:
+            tok = prompt[:, i:i + 1]
+        else:
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            out.append(tok.cpu().numpy())  # the host reads each new token
+        logits, caches = serve(params, caches, tok, i)
+        step_logits.append(logits)
+        return (logits, caches), {}
+
+    run_loop(step, (None, caches), T + gen, hooks=hooks)
+    generated = np.concatenate(out, axis=1) if out else np.zeros((B, 0), np.int64)
+    return generated, step_logits
+
+
+def serve(args):
+    """Returns the generated ids and the logits of every step."""
+    from repro_torch.common.device import resolve_device
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.engine import ThroughputHook
+    from repro_torch.models.transformer import build_model
+
+    defaults = build_parser().parse_args([])
+    for flag, item in NOT_PORTED.items():
+        if getattr(args, flag) != getattr(defaults, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not yet ported to repro_torch: "
+                f"ROADMAP {item}")
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    # cast once at load; the f32 draw is not kept
+    params = model.cast(model.init(torch.Generator().manual_seed(args.seed),
+                                   device=dev))
+    rng = np.random.default_rng(args.seed)
+    B, T = args.batch, args.prompt_len
+    tokens = rng.integers(0, cfg.vocab_size, (B, T))
+
+    gen, logits = generate(model, params, tokens, args.gen,
+                           hooks=[ThroughputHook(items_per_step=B, label="tok")])
+    print(f"arch={cfg.name} reduced={not args.full} batch={B}")
+    print(f"generated tokens:\n{gen}")
+    if not bool(torch.isfinite(logits[-1]).all()):
+        raise RuntimeError("non-finite logits")
+    return gen, logits
+
+
+def main(argv=None):
+    return serve(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

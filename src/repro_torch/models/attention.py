@@ -1,0 +1,197 @@
+"""Attention mixers of the LM zoo: GQA / MHA, full or sliding-window, with
+an optional QKV bias.
+
+A port of the JAX package's models/attention.py. Paths:
+  * ``attention_train``: full sequence. By default query-chunked
+    (``_sdpa_chunked``, the (T, S) scores of one chunk at a time); with
+    ``use_flash=True`` on causal self-attention it calls ``flash_attention``,
+    the hand-written kernel on the card (csrc/flash_attention.cu) and its
+    plain version on the CPU. The JAX package takes that route only under a
+    mesh (shard_map) and otherwise falls back to the chunked one; the port
+    has no mesh, so ``use_flash`` alone picks it (ROADMAP Queue C).
+  * ``attention_decode``: one token against a KV cache; SWA uses a ring
+    cache of ``window`` slots. The port writes the cache in place where JAX
+    returns an updated copy (Queue C).
+
+Matmuls follow JAX's type promotion (``layers.matmul``): an f32 bias or
+residual turns the following products to f32.
+
+MLA (minicpm3) and cross-attention (Whisper) wait for ROADMAP Queue A10 and
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.common.config import ArchConfig, AttentionKind
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import ParamDef, matmul, rope, torch_dtype
+
+Params = Dict[str, torch.Tensor]
+
+MLA_TODO = "MLA attention (minicpm3) is not yet ported to repro_torch: ROADMAP Queue A10"
+CROSS_TODO = ("cross-attention (the Whisper decoder) is not yet ported to "
+              "repro_torch: ROADMAP Queue A10")
+
+
+def _window(cfg: ArchConfig) -> int:
+    return cfg.window if cfg.attention == AttentionKind.SWA else 0
+
+
+# =========================================================================== defs
+def attn_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    if cfg.attention == AttentionKind.MLA:
+        raise NotImplementedError(MLA_TODO)
+    d, hd, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    out = {
+        "wq": ParamDef((d, H * hd), init="fan_in"),
+        "wk": ParamDef((d, Hkv * hd), init="fan_in"),
+        "wv": ParamDef((d, Hkv * hd), init="fan_in"),
+        "wo": ParamDef((H * hd, d), init="fan_in"),
+    }
+    if cfg.qkv_bias:
+        out["bq"] = ParamDef((H * hd,), init="zeros")
+        out["bk"] = ParamDef((Hkv * hd,), init="zeros")
+        out["bv"] = ParamDef((Hkv * hd,), init="zeros")
+    return out
+
+
+# ====================================================================== core math
+def _sdpa_chunked(q, k, v, causal: bool, window: int, q_offset: int,
+                  chunk: int = 512) -> torch.Tensor:
+    """q (B, T, H, dh), k and v (B, S, Hkv, dh), 512 queries at a time.
+
+    As in JAX: q is scaled before the dot, scores and softmax are f32, and
+    the probabilities are stored in q's type before the f32 P @ V product.
+    """
+    B, T, H, dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    scale = dh ** -0.5
+    qg = q.reshape(B, T, Hkv, g, dh)
+    kpos = torch.arange(S, device=q.device)
+    kf, vf = k.float(), v.float()
+
+    def on_chunk(qc, qpos):
+        s = torch.einsum("bthgd,bshd->bthgs", (qc * scale).float(), kf)
+        mask = torch.ones((qpos.shape[0], S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= (qpos[:, None] + q_offset)
+        if window > 0:
+            mask &= kpos[None, :] > (qpos[:, None] + q_offset - window)
+        s = torch.where(mask[None, :, None, None, :], s, -1e30)
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        p = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+        return torch.einsum("bthgs,bshd->bthgd", p.float(), vf)
+
+    chunk = min(chunk, T)
+    if T % chunk != 0:
+        chunk = T  # odd sizes: single chunk
+    pos = torch.arange(T, device=q.device)
+    out = torch.cat([on_chunk(qg[:, c:c + chunk], pos[c:c + chunk])
+                     for c in range(0, T, chunk)], dim=1)
+    return out.reshape(B, T, H, v.shape[-1]).to(q.dtype)
+
+
+# ================================================================== GQA train path
+def attention_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                    causal: bool = True, q_offset: int = 0,
+                    kv_src: Optional[torch.Tensor] = None,
+                    use_flash: bool = False) -> torch.Tensor:
+    """Self-attention of x (B, T, D). ``use_flash`` routes causal
+    self-attention through ``flash_attention``."""
+    if cfg.attention == AttentionKind.MLA:
+        raise NotImplementedError(MLA_TODO)
+    if kv_src is not None:
+        raise NotImplementedError(CROSS_TODO)
+    B, T, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = matmul(x, params["wq"]).reshape(B, T, H, hd)
+    k = matmul(x, params["wk"]).reshape(B, T, Hkv, hd)
+    v = matmul(x, params["wv"]).reshape(B, T, Hkv, hd)
+    if "bq" in params:
+        q = q + params["bq"].reshape(H, hd)
+        k = k + params["bk"].reshape(Hkv, hd)
+        v = v + params["bv"].reshape(Hkv, hd)
+    pos = torch.arange(T, device=x.device)
+    q = rope(q, pos + q_offset, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    window = _window(cfg)
+    if use_flash and causal:
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            causal=True, window=window, q_offset=q_offset)
+        o = o.transpose(1, 2)
+    else:
+        o = _sdpa_chunked(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return matmul(o.reshape(B, T, H * hd), params["wo"])
+
+
+# ================================================================== decode path
+def cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, ParamDef]:
+    """The decode cache of one attention layer, in the config's dtype: a
+    ring of ``window`` slots for SWA, else ``seq`` slots."""
+    if cfg.attention == AttentionKind.MLA:
+        raise NotImplementedError(MLA_TODO)
+    Hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    dt = torch_dtype(cfg.dtype)
+    W = _window(cfg)
+    S = min(seq, W) if W else seq
+    return {
+        "k": ParamDef((batch, S, Hkv, hd), init="zeros", dtype=dt),
+        "v": ParamDef((batch, S, Hkv, hd), init="zeros", dtype=dt),
+    }
+
+
+def attention_decode(params: Params, x1: torch.Tensor, cache: Dict[str, torch.Tensor],
+                     index: int, cfg: ArchConfig
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x1 (B, 1, D) at position ``index``; writes this token's k and v into
+    ``cache`` in place and returns (y, cache)."""
+    if cfg.attention == AttentionKind.MLA:
+        raise NotImplementedError(MLA_TODO)
+    index = int(index)
+    B = x1.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = matmul(x1, params["wq"]).reshape(B, 1, H, hd)
+    k1 = matmul(x1, params["wk"]).reshape(B, 1, Hkv, hd)
+    v1 = matmul(x1, params["wv"]).reshape(B, 1, Hkv, hd)
+    if "bq" in params:
+        q = q + params["bq"].reshape(H, hd)
+        k1 = k1 + params["bk"].reshape(Hkv, hd)
+        v1 = v1 + params["bv"].reshape(Hkv, hd)
+    posv = torch.full((1,), index, dtype=torch.int32, device=x1.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k1 = rope(k1, posv, cfg.rope_theta)
+
+    k, v = cache["k"], cache["v"]
+    S = k.shape[1]
+    window = _window(cfg)
+    ring = bool(window) and S == window
+    slot = index % S if ring else index
+    k[:, slot] = k1[:, 0].to(k.dtype)
+    v[:, slot] = v1[:, 0].to(v.dtype)
+    sl = torch.arange(S, device=x1.device)
+    if ring:
+        kpos = index - ((index - sl) % S)  # latest pos <= index congruent to slot
+        valid = (kpos >= 0) & (kpos > index - window)
+    else:
+        valid = sl <= index
+        if window:
+            valid &= sl > index - window
+    o = _decode_sdpa(q, k, v, valid)
+    return matmul(o.reshape(B, 1, H * hd), params["wo"]), cache
+
+
+def _decode_sdpa(q, k, v, valid):
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, hd)
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float() * hd ** -0.5, k.float())
+    s = torch.where(valid[None, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)

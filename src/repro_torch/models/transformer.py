@@ -1,0 +1,219 @@
+"""Architecture assembly of the LM zoo: attention-only, dense-FFN decoders.
+
+A port of the JAX package's models/transformer.py for the configs whose
+layers are all (attention, dense FFN) with no encoder and no frontend:
+Qwen1.5-0.5B, H2O-Danube-1.8B (SWA) and Minitron-4B. ``build_model(cfg)``
+returns a ``Model`` exposing
+
+    defs / init(gen, device) / cast(params)  parameters (JAX's tree layout)
+    forward(params, inputs, use_flash)       logits for prefill
+    hidden(params, inputs)                   final hidden states
+    cache_defs(batch, seq) / init_caches     decode caches
+    decode_step(params, caches, token, index) -> (logits, caches)
+
+The parameter tree has JAX's keys and layout: with ``scan_layers`` (full
+configs) the layers are stacked on a leading axis under ``layers/l0``; the
+reduced configs keep ``layers/l0 .. l{n-1}`` apart. Where JAX scans over
+the stack, the port loops in Python over views of it. ``forward`` casts
+every f32 parameter of two or more dimensions to the config's dtype, as JAX
+does; a stacked norm weight or bias is 2-D, so under ``scan_layers`` it is
+cast too, and a full config computes in its dtype where the reduced one
+promotes to f32 at its 1-D biases and norms. ``cast(params)`` does that
+once, so a server holds the cast copy and the cast in ``forward`` finds
+nothing left to do.
+
+MoE, Mamba2 / Jamba, MLA, the Whisper encoder-decoder and the LLaVA frontend
+raise ``NotImplementedError`` at ``build_model``, naming their ROADMAP item.
+``params_from_arrays`` / ``params_to_arrays`` carry weights between the JAX
+package (nested numpy arrays) and the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common.config import ArchConfig, AttentionKind, Frontend
+from repro_torch.models import attention as A
+from repro_torch.models import moe as M
+from repro_torch.models.layers import (
+    ParamDef, materialize, matmul, rmsnorm, stack_defs, torch_dtype, tree_map,
+)
+
+Params = Dict[str, Any]
+
+
+def unported(cfg: ArchConfig) -> Optional[str]:
+    """Why ``cfg`` does not run in the port yet, or None."""
+    if cfg.n_experts or cfg.moe_period:
+        what = "MoE layers (mixtral, dbrx)"
+    elif cfg.mixer_pattern != "attn":
+        what = "Mamba2 / Jamba layers (with ssd_scan, Queue B4)"
+    elif cfg.attention == AttentionKind.MLA:
+        what = "MLA attention (minicpm3)"
+    elif cfg.enc_dec:
+        what = "the Whisper encoder-decoder"
+    elif cfg.frontend != Frontend.NONE:
+        what = "the LLaVA vision frontend"
+    elif cfg.d_ff <= 0:
+        what = "layers without an FFN"
+    else:
+        return None
+    return f"{cfg.name}: {what} not yet ported to repro_torch: ROADMAP Queue A10"
+
+
+def _layer_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "ln1": ParamDef((d,), init="ones"),
+        "attn": A.attn_defs(cfg),
+        "ln2": ParamDef((d,), init="ones"),
+        "ffn": M.ffn_defs(cfg),
+    }
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+
+    def __post_init__(self):
+        why = unported(self.cfg)
+        if why:
+            raise NotImplementedError(why)
+        cfg = self.cfg
+        # every layer is (attention, dense FFN): the pattern repeats with
+        # period 1, so scan_layers stacks all layers into one group
+        self.period = 1 if cfg.scan_layers else cfg.n_layers
+        self.n_groups = cfg.n_layers // self.period
+        self.dtype = torch_dtype(cfg.dtype)
+        self._build_defs()
+
+    # ---------------------------------------------------------------- params
+    def _build_defs(self):
+        cfg = self.cfg
+        self.padded_vocab = -(-cfg.vocab_size // 8) * 8  # no mesh: 8-aligned
+        d: Dict[str, Any] = {
+            "tok_emb": ParamDef((self.padded_vocab, cfg.d_model), init="normal",
+                                scale=0.02)}
+        if not cfg.tie_embeddings:
+            d["unembed"] = ParamDef((cfg.d_model, self.padded_vocab), init="fan_in")
+        d["final_ln"] = ParamDef((cfg.d_model,), init="ones")
+        per_group = {f"l{j}": _layer_defs(cfg) for j in range(self.period)}
+        d["layers"] = (stack_defs([per_group] * self.n_groups) if self.n_groups > 1
+                       else per_group)
+        if cfg.param_dtype != "float32":
+            pd = torch_dtype(cfg.param_dtype)
+            d = tree_map(lambda x: dataclasses.replace(x, dtype=pd)
+                         if len(x.shape) >= 2 else x, d)
+        self.defs = d
+
+    def init(self, gen: torch.Generator, device="cpu") -> Params:
+        """Parameters drawn from ``gen`` (on its device) by the JAX package's
+        init rules, then moved to ``device``."""
+        return materialize(self.defs, gen, device)
+
+    def cast(self, params: Params) -> Params:
+        """Every f32 tensor of two or more dimensions in the config's dtype;
+        a tensor already in it is kept, not copied."""
+        return tree_map(lambda a: a.to(self.dtype)
+                        if a.dtype == torch.float32 and a.dim() >= 2 else a, params)
+
+    def _layers(self, layers) -> Iterator[Dict[str, Any]]:
+        """Each layer's tree, in order: views into the stack under
+        ``scan_layers``."""
+        for gi in range(self.n_groups):
+            pg = layers if self.n_groups == 1 else tree_map(lambda a: a[gi], layers)
+            for j in range(self.period):
+                yield pg[f"l{j}"]
+
+    # --------------------------------------------------------------- forward
+    def _apply_layer(self, x, p, use_flash=False):
+        cfg = self.cfg
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        x = x + A.attention_train(p["attn"], h, cfg, causal=True, use_flash=use_flash)
+        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        return x + M.ffn_apply(p["ffn"], h, cfg)
+
+    def _unembed(self, cast, x):
+        w = cast["tok_emb"].T if self.cfg.tie_embeddings else cast["unembed"]
+        return matmul(x, w)
+
+    def embed(self, params, tokens):
+        return params["tok_emb"][tokens.long()].to(self.dtype)
+
+    def hidden(self, params: Params, inputs: Dict[str, torch.Tensor],
+               use_flash: bool = False) -> torch.Tensor:
+        """Final hidden states (forward minus unembedding)."""
+        cast = self.cast(params)
+        x = self.embed(cast, inputs["tokens"])
+        for p in self._layers(cast["layers"]):
+            x = self._apply_layer(x, p, use_flash=use_flash)
+        return rmsnorm(x, cast["final_ln"], self.cfg.norm_eps)
+
+    def forward(self, params: Params, inputs: Dict[str, torch.Tensor],
+                use_flash: bool = False) -> torch.Tensor:
+        """Logits (B, T, padded_vocab) of ``inputs["tokens"]`` (B, T)."""
+        cast = self.cast(params)
+        return self._unembed(cast, self.hidden(cast, inputs, use_flash=use_flash))
+
+    # ---------------------------------------------------------------- decode
+    def cache_defs(self, batch: int, seq: int) -> Dict[str, Any]:
+        per_group = {f"l{j}": A.cache_defs(self.cfg, batch, seq)
+                     for j in range(self.period)}
+        if self.n_groups > 1:
+            return stack_defs([per_group] * self.n_groups)
+        return per_group
+
+    def init_caches(self, batch: int, seq: int, device="cpu") -> Dict[str, Any]:
+        """Zeroed decode caches for ``batch`` sequences of ``seq`` tokens."""
+        return materialize(self.cache_defs(batch, seq), None, device)
+
+    def decode_step(self, params: Params, caches, token: torch.Tensor, index: int):
+        """token: (B, 1) ids at position ``index``. Writes the caches in
+        place (JAX returns new ones) and returns (logits, caches)."""
+        cfg = self.cfg
+        cast = self.cast(params)
+        x = self.embed(cast, token)  # (B, 1, D)
+        for p, c in zip(self._layers(cast["layers"]), self._layers(caches)):
+            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+            h, _ = A.attention_decode(p["attn"], h, c, index, cfg)
+            x = x + h
+            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+            x = x + M.ffn_apply(p["ffn"], h, cfg)
+        x = rmsnorm(x, cast["final_ln"], cfg.norm_eps)
+        return self._unembed(cast, x), caches
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    return Model(cfg=cfg)
+
+
+# ------------------------------------------------------------ weights across
+def params_from_arrays(model: Model, tree, device="cpu") -> Params:
+    """The port's parameters from the JAX package's tree of numpy arrays
+    (``jax.tree.map(np.asarray, params)``) of the same config: stacked
+    under ``layers/l0`` for a config with ``scan_layers``, per layer
+    (``layers/l0 .. l{n-1}``) for a reduced one. Keys and shapes must match
+    the model's defs."""
+
+    def conv(defs, arrs, path):
+        if isinstance(defs, dict):
+            if not isinstance(arrs, dict) or set(arrs) != set(defs):
+                got = sorted(arrs) if isinstance(arrs, dict) else type(arrs).__name__
+                raise ValueError(f"params{path}: expected keys {sorted(defs)}, got {got}")
+            return {k: conv(defs[k], arrs[k], f"{path}/{k}") for k in defs}
+        a = np.asarray(arrs, dtype=np.float32)
+        if a.shape != tuple(defs.shape):
+            raise ValueError(f"params{path}: expected shape {tuple(defs.shape)}, "
+                             f"got {a.shape}")
+        return torch.tensor(a, dtype=defs.dtype, device=device)
+
+    return conv(model.defs, tree, "")
+
+
+def params_to_arrays(params: Params):
+    """The JAX package's layout as nested numpy arrays (f32)."""
+    return tree_map(lambda t: t.detach().cpu().float().numpy(), params)

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.kge_score.ops import (
     l1_bwd_kernel, pairwise_kernel, pairwise_scores,
 )
@@ -198,3 +200,81 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         l1_bwd_kernel(o, o, g.cpu())
     with pytest.raises(ValueError, match="one CUDA device"):
         dedup_aggregate(torch.zeros(4, dtype=torch.int32, device=cuda), torch.zeros(4, 8))
+
+
+# (B, H, Hkv, T, S, dh, window, q_offset, causal): phase 3's small shapes
+# (ragged; decode-like T = 1 with q_offset), every head dim the kernel
+# instantiates, GQA with a window, keys not causal, and rows with no valid
+# key (q_offset past S with a window)
+FLASH_CASES = [
+    (2, 4, 2, 100, 100, 64, 0, 0, True),
+    (1, 4, 2, 1, 512, 64, 0, 511, True),
+    (2, 4, 1, 256, 256, 32, 64, 0, True),
+    (1, 8, 2, 200, 200, 80, 96, 0, True),
+    (1, 2, 2, 130, 130, 128, 0, 0, True),
+    (1, 8, 8, 64, 256, 32, 0, 192, True),
+    (2, 4, 2, 70, 150, 64, 0, 0, False),
+    (1, 2, 1, 40, 8, 64, 4, 20, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    B, H, Hkv, T, S, dh, win, qoff, causal = case
+    rng = _rng(11)
+    q, k, v = (torch.tensor(rng.standard_normal(s), dtype=dtype, device=cuda)
+               for s in ((B, H, T, dh), (B, Hkv, S, dh), (B, Hkv, S, dh)))
+    before = build.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, causal=causal, window=win, q_offset=qoff)
+    ref = mha_ref(q, k, v, causal=causal, window=win, q_offset=qoff)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    got, want = out.float(), ref.float()
+    # f32: sums in another order; bf16: the two f32 results may round to
+    # neighbouring bf16 values (one rounding, 2^-7 of the value)
+    tol = 2e-5 * max(1.0, float(want.abs().max()))
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * want.abs()
+    assert bool(((got - want).abs() <= tol).all())
+    assert bool(torch.isfinite(got).all())
+    if qoff >= S + win and win:  # no row sees a key
+        assert bool((got == 0).all())
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(1, 4, 8, 64, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, q[:, :3], q[:, :3])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention(q, q.cpu(), q)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "h2o-danube-1.8b"])
+def test_flash_prefill_on_card_matches_cpu(cuda, arch):
+    """A reduced model's flash prefill through the kernel on the card and
+    through the plain version on the CPU, from the same weights, in f32
+    (the 2e-3 bound of tests/test_flash_serving.py); one launch a layer."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), dtype="float32", window=48)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tok = torch.tensor(_rng(12).integers(0, cfg.vocab_size, (2, 96)))
+    prefill = build_prefill_step(model, use_flash=True)
+    before = build.LAUNCHES["flash_attention"]
+    got = prefill(tree_map(lambda t: t.to(cuda), params), {"tokens": tok.to(cuda)})
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), prefill(params, {"tokens": tok}),
+                               rtol=2e-3, atol=2e-3)

@@ -39,7 +39,9 @@ def _banned_imports(path: Path):
 def test_port_modules_exist():
     mods = list(_modules())
     for m in ("repro_torch.core.step", "repro_torch.kernels.kge_score.ops",
-              "repro_torch.kernels.sparse_adagrad.ops", "repro_torch.launch.train"):
+              "repro_torch.kernels.sparse_adagrad.ops", "repro_torch.launch.train",
+              "repro_torch.kernels.flash_attention.ops", "repro_torch.models.transformer",
+              "repro_torch.models.steps", "repro_torch.launch.serve"):
         assert m in mods
 
 

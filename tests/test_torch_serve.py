@@ -1,0 +1,124 @@
+"""The port's serve driver (launch/serve.py, engine.run_loop,
+ThroughputHook) against the JAX package's serve loop on the reduced
+Qwen1.5-0.5B in its config dtype, from JAX's weights."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.models.transformer import build_model as jax_build
+from repro_torch.configs import ARCHS
+from repro_torch.kernels import build
+from repro_torch.launch import engine, serve
+from repro_torch.models.transformer import build_model, params_from_arrays
+
+torch.set_num_threads(2)
+ROOT = Path(__file__).resolve().parents[1]
+TOL = 2e-3  # logits; a greedy token is compared where its top-2 gap exceeds it
+
+
+def _jax_serve_loop(jm, jp, tokens, gen):
+    """The loop of the JAX package's launch/serve.py main(), with given
+    weights: the prompt token by token, then greedy tokens."""
+    B, T = tokens.shape
+    caches = jax.tree.map(lambda d: jnp.zeros(d.shape, d.dtype),
+                          jm.cache_defs(B, T + gen),
+                          is_leaf=lambda x: hasattr(x, "materialize"))
+    dec = jax.jit(jm.decode_step)
+    out, logs, logits = [], [], None
+    for i in range(T + gen):
+        if i < T:
+            tok = jnp.asarray(tokens[:, i:i + 1], jnp.int32)
+        else:
+            tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+            out.append(np.asarray(tok))
+        logits, caches = dec(jp, caches, tok, jnp.asarray(i, jnp.int32))
+        logs.append(np.asarray(logits[:, 0], np.float32))
+    return np.concatenate(out, axis=1), logs
+
+
+def test_serve_loop_matches_jax():
+    arch = "qwen1.5-0.5b"
+    jm, m = jax_build(JAX_ARCHS[arch].reduced()), build_model(ARCHS[arch].reduced())
+    jp = jm.init(jax.random.key(0))
+    params = m.cast(params_from_arrays(m, jax.tree.map(np.asarray, jp)))
+    B, T, gen = 2, 8, 6
+    tokens = np.random.default_rng(0).integers(0, m.cfg.vocab_size, (B, T))
+    want, want_logits = _jax_serve_loop(jm, jp, tokens, gen)
+    before = dict(build.LAUNCHES)
+    got, logits = serve.generate(m, params, tokens, gen)
+    assert build.LAUNCHES == before  # decode launches no kernel
+    assert got.shape == (B, gen) and len(logits) == T + gen
+    for i in range(T):  # teacher-forced: the same inputs in both
+        np.testing.assert_allclose(logits[i][:, 0].float().numpy(), want_logits[i],
+                                   rtol=TOL, atol=TOL)
+    for b in range(B):
+        for t in range(gen):
+            top2 = np.sort(want_logits[T - 1 + t][b])[-2:]
+            if top2[1] - top2[0] <= TOL:
+                break  # a near-tie: the two may pick either, and then diverge
+            assert got[b, t] == want[b, t], (b, t)
+
+
+def test_serve_cli_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "qwen1.5-0.5b", "--batch", "2", "--prompt-len", "8", "--gen", "4"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("12 steps in ") and lines[0].endswith(" tok/s")
+    assert lines[1] == "arch=qwen1.5-0.5b reduced=True batch=2"
+    assert lines[2] == "generated tokens:"
+    rows = [ln.strip(" []").split() for ln in lines[3:5]]
+    assert [len(r) for r in rows] == [4, 4]
+
+
+def test_serve_main_on_danube(capsys):
+    """GQA with a ring cache through the CLI's function: the generated ids
+    are tokens of the padded vocab and every step's logits are finite."""
+    gen, logits = serve.main(["--device", "cpu", "--arch", "h2o-danube-1.8b",
+                              "--batch", "3", "--prompt-len", "5", "--gen", "3"])
+    assert gen.shape == (3, 3) and gen.min() >= 0 and gen.max() < 1024
+    assert all(bool(torch.isfinite(lg.float()).all()) for lg in logits)
+    assert "arch=h2o-danube-1.8b reduced=True batch=3" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flag", ["--metrics-out", "--trace-out"])
+def test_serve_refuses_unported_flags(flag):
+    with pytest.raises(NotImplementedError, match="Queue A9"):
+        serve.main(["--device", "cpu", flag, "x.json"])
+
+
+def test_serve_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--batch", "1", "--prompt-len", "2", "--gen", "1"])
+
+
+def test_run_loop_and_throughput_hook():
+    lines, seen = [], []
+
+    class Seen(engine.Hook):
+        def on_step(self, i, state, metrics, stats):
+            seen.append((i, state, metrics, stats))
+
+        def on_end(self, i, state):
+            seen.append(("end", i, state))
+
+    out = engine.run_loop(lambda i, s: (s + [i], {"i": i}), [], 3,
+                          hooks=[Seen(), engine.ThroughputHook(4, "tok", lines.append)])
+    assert out == [0, 1, 2]
+    assert [s[0] for s in seen] == [1, 2, 3, "end"] and seen[-1][1] == 3
+    assert seen[0] == (1, [0], {"i": 0}, None)  # i is 0-based in the step
+    assert len(lines) == 1 and lines[0].startswith("3 steps in ")
+    assert lines[0].endswith(" tok/s")
