@@ -10,15 +10,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      the main paths' shapes and ragged ones (the l1 pairwise forward also at
      eval's 512 x 14,951 x 400; flash attention at Qwen1.5-0.5B's prefill in
      bf16 and f32, H2O-Danube-1.8B's GQA and window, a ragged and a
-     decode-like shape), with its time, the plain version's time, one
-     PyTorch library call's time as a yardstick, and the least time the
-     card could take for the same work (bound);
+     decode-like shape; the SSD scan at Mamba2-2.7B's prefill, a long
+     sequence, a ragged T and T = 1, also against the step-by-step
+     ``ssd_ref``), with its time, the plain version's time, one PyTorch
+     library call's time as a yardstick where one computes the same
+     function, and the least time the card could take for the same work
+     (bound);
   4. agreement: three dim-400 training steps at batch 256 and k 64 on a
      small synthetic graph, on the card (kernels) and on the CPU (plain
      versions), from the same tables and batches, for TransE_l2 and
-     TransE_l1; and a (1, 256) flash prefill of Qwen1.5-0.5B at full width
-     cut to 2 layers, in f32, on the card and on the CPU from the same
-     weights (logits within 2e-3);
+     TransE_l1; and (1, 256) prefills of Qwen1.5-0.5B (flash) and
+     Mamba2-2.7B (ssd_scan) at full width cut to 2 layers, in f32, on the
+     card and on the CPU from the same weights (logits within 2e-3);
   5. TransE_l2 path: ``python -m repro_torch.launch.train --dataset fb15k
      --model transe_l2`` (14,951 x 400 entities, batch 1024, 256 joint
      negatives, T5 deferred update on) for 200 steps; the loss must fall and
@@ -42,6 +45,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      its tok/s line, no flash launch; its teacher-forced logits at the 32
      prompt positions against the flash prefill's from the same weights
      (and in f32 within 2e-3); decode tokens/s with the card synchronised.
+  9. Mamba2 prefill: Mamba2-2.7B at full width in its config dtype,
+     ``build_prefill_step(model)`` on (4, 2048) tokens from numpy seed 0: 64
+     ssd_scan launches a forward and no flash launch, finite logits,
+     prefill tokens/s and the forward's device time by kernel;
+ 10. Mamba2 serve: ``python -m repro_torch.launch.serve --arch mamba2-2.7b
+     --full --batch 4 --prompt-len 32 --gen 16`` in process: finite logits,
+     its tok/s line, no kernel launch; in f32 from the same weights, its
+     teacher-forced logits at the 32 prompt positions within 2e-3 x max(1,
+     max|logit|) of the kernel-route prefill's (the recurrence against the
+     kernel, which share no code); decode tokens/s with the card
+     synchronised.
 
 Launch counts are set to 0 just before each path and read just after it.
 
@@ -90,6 +104,18 @@ PREFILL_SHAPE = (4, 2048)
 SERVE_ARGS = ["--arch", QWEN, "--full", "--batch", "4", "--prompt-len", "32",
               "--gen", "16"]
 LM_TOL = 2e-3  # logits, f32: JAX's bound (tests/test_flash_serving.py)
+MAMBA = "mamba2-2.7b"
+MAMBA_SERVE_ARGS = ["--arch", MAMBA, "--full", "--batch", "4", "--prompt-len", "32",
+                    "--gen", "16"]
+# the SSD scan, (B, T, H, P, N); the first is what the Mamba2 prefill launches
+SSD_SHAPES = {
+    "mamba2_prefill": (4, 2048, 80, 64, 128),
+    "long_8192": (1, 8192, 80, 64, 128),
+    "ragged_100": (1, 100, 4, 32, 16),
+    "t1": (4, 1, 80, 64, 128),
+}
+SSD_CHUNK = 64  # the kernel's chunk rows
+SSD_REF_TOL = 1e-4  # against ssd_ref: JAX's bound (tests/test_kernels.py:94-99)
 
 TPU_KERNEL = {
     "pairwise": "src/repro/kernels/kge_score/kge_score.py:57",
@@ -100,6 +126,8 @@ TPU_KERNEL = {
     "l1_bwd_dn": "src/repro/kernels/kge_score/kge_score.py:135",
     # flash_attention_pallas (:90), its pallas_call at :116
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:90",
+    # ssd_scan_pallas (:67), its pallas_call at :85
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:67",
 }
 
 
@@ -178,10 +206,13 @@ def device_ms(torch, fn, reps=50, warmup=5):
 
 
 def timings(torch, kernel, plain, library, reps=50, plain_reps=20):
+    """Device times of the kernel, its plain version and the library call
+    (None where no single PyTorch call computes the function)."""
+    lib = (None if library is None
+           else device_ms(torch, library, plain_reps, min(5, plain_reps)))
     return dict(ms=device_ms(torch, kernel, reps),
                 plain_ms=device_ms(torch, plain, plain_reps, min(5, plain_reps)),
-                library_ms=device_ms(torch, library, plain_reps, min(5, plain_reps)),
-                event_ms=event_ms(torch, kernel, reps))
+                library_ms=lib, event_ms=event_ms(torch, kernel, reps))
 
 
 def _fmt(r) -> str:
@@ -508,6 +539,69 @@ def check_flash(torch, dev, gen):
                                               if k != main})]
 
 
+def ssd_ops(B, T, H, P, N):
+    """Operations the SSD scan needs at the kernel's chunks, each as long as
+    this run's T makes it, counting (as the flash row does) only the pairs
+    that the causal mask keeps: per (b, chunk) of k rows the Gram matrix's
+    lower triangle once, k (k + 1) N, and per head the intra-chunk product
+    over the same triangle, k (k + 1) P; the inter-chunk product, 2 k N P,
+    for every chunk but the first (the state is 0 there) and the state
+    update, 2 k P N, for every chunk but the last (nothing reads it)."""
+    rows = [min(SSD_CHUNK, T - t0) for t0 in range(0, T, SSD_CHUNK)]
+    tri = sum(k * (k + 1) * (N + H * P) for k in rows)
+    carried = sum(rows[1:]) + sum(rows[:-1])  # rows that meet a carried state
+    return B * (tri + H * 2 * N * P * carried)
+
+
+def check_ssd(torch, dev, gen):
+    """ssd_scan.cu against the plain chunked version within 2e-5 x max(1,
+    max|plain|), and against the step-by-step ``ssd_ref`` within 1e-4 x
+    max(1, max|ref|), at SSD_SHAPES, on inputs of JAX's sweep (dt in [0.05,
+    0.15], A in [-2, -1], B and C of std 0.5). No single PyTorch call
+    computes the scan, so the row has no library time."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_batched, ssd_ref
+
+    err = tol = ref_err = ref_tol = 0.0
+    timed = {}
+    for name, (B, T, H, P, N) in SSD_SHAPES.items():
+        ins = (torch.randn(B, T, H, P, generator=gen),
+               0.05 + 0.1 * torch.rand(B, T, H, generator=gen),
+               -1.0 - torch.rand(H, generator=gen),
+               0.5 * torch.randn(B, T, N, generator=gen),
+               0.5 * torch.randn(B, T, N, generator=gen))
+        x, dt, A, Bm, Cm = (t.to(dev) for t in ins)
+        y = ssd_scan_kernel(x, dt, A, Bm, Cm)
+        plain = ssd_chunked_batched(x, dt, A, Bm, Cm)
+        ref = torch.stack([ssd_ref(x[b], dt[b], A, Bm[b], Cm[b])[0] for b in range(B)])
+        e, t = _max_err(torch, y, plain)
+        re_ = float((y - ref).abs().max())
+        rt = SSD_REF_TOL * max(1.0, float(ref.abs().max()))
+        print(f"  ssd_scan {name} {(B, T, H, P, N)}: max_abs_err {e:.3e} (tol {t:.3e}) "
+              f"vs plain; {re_:.3e} (tol {rt:.3e}) vs ssd_ref")
+        check(y.shape == x.shape and math.isfinite(e) and e <= t and re_ <= rt,
+              f"ssd_scan {name} disagrees: {e} > {t} or {re_} > {rt}")
+        err, tol = max(err, e), max(tol, t)
+        ref_err, ref_tol = max(ref_err, re_), max(ref_tol, rt)
+        del ref
+        big = B * T * H > 1 << 16
+        tm = timings(torch, lambda: ssd_scan_kernel(x, dt, A, Bm, Cm),
+                     lambda: ssd_chunked_batched(x, dt, A, Bm, Cm), None,
+                     reps=10 if big else 50, plain_reps=3 if big else 20)
+        n_bytes = 4 * (2 * x.numel() + dt.numel() + 2 * Bm.numel() + H)
+        b_ms, b_by = bound(n_bytes, ssd_ops(B, T, H, P, N))
+        timed[name] = dict(shape=f"{B}x{T}x{H}x{P}x{N}", bound_ms=b_ms, bound_by=b_by,
+                           **tm)
+        print(f"    {_fmt(timed[name])}")
+    main = next(iter(SSD_SHAPES))
+    return [dict(name="ssd_scan", source="src/repro_torch/csrc/ssd_scan.cu",
+                 replaces=TPU_KERNEL["ssd_scan"], max_abs_err=err, tol=tol,
+                 ref_err=ref_err, ref_tol=ref_tol,
+                 library="none: no single PyTorch call computes the SSD scan",
+                 **timed[main], other_shapes={k: timed[k] for k in SSD_SHAPES
+                                              if k != main})]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: a few dim-400 steps on a small graph, card vs CPU
 # ---------------------------------------------------------------------------
@@ -559,14 +653,15 @@ def logits_agree(torch, got, want, rtol, atol):
     return err, ratio
 
 
-def check_lm_agreement(torch, np, dev):
-    """Qwen1.5-0.5B at full width cut to 2 layers, in f32: a (1, 256) flash
-    prefill on the card (kernel) and on the CPU (plain version), from the
-    same weights. The two layers are kept apart (``scan_layers=False``, as
-    the reduced configs keep theirs): stacked, ``fan_in`` would read the
-    layer count, 2, and draw matrices of std 0.71 whose activations turn
-    the comparison into a test of rounding chaos (a stacked run came within
-    1% of the bound)."""
+def check_lm_agreement(torch, np, dev, arch, counter, use_flash):
+    """``arch`` at full width cut to 2 layers, in f32: a (1, 256) prefill on
+    the card through the ``counter`` kernel (flash attention for Qwen, with
+    ``use_flash``; ssd_scan for Mamba2) and on the CPU through its plain
+    version, from the same weights, within 2e-3. The two layers are kept
+    apart (``scan_layers=False``, as the reduced configs keep theirs):
+    stacked, ``fan_in`` would read the layer count, 2, and draw matrices of
+    std 0.71 whose activations turn the comparison into a test of rounding
+    chaos (a stacked Qwen run came within 1% of the bound)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -575,24 +670,24 @@ def check_lm_agreement(torch, np, dev):
     from repro_torch.models.steps import build_prefill_step
     from repro_torch.models.transformer import build_model
 
-    cfg = dataclasses.replace(get_arch(QWEN), n_layers=2, dtype="float32",
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2, dtype="float32",
                               scan_layers=False)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(1))
     card = tree_map(lambda t: t.to(dev), params)
     tok = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 256)))
-    prefill = build_prefill_step(model, use_flash=True)
+    prefill = build_prefill_step(model, use_flash=use_flash)
     build.reset_launches()
     got = prefill(card, {"tokens": tok.to(dev)})
     torch.cuda.synchronize()
-    n = build.LAUNCHES["flash_attention"]
+    n = build.LAUNCHES[counter]
     want = prefill(params, {"tokens": tok})
     err, ratio = logits_agree(torch, got, want, LM_TOL, LM_TOL)
-    print(f"  qwen 2-layer full-width f32 prefill (1, 256): {n} flash launches; "
-          f"card vs CPU logits max_abs_err {err:.3e}, largest share of the "
-          f"2e-3 bound {ratio:.3f}")
+    print(f"  {arch} 2-layer full-width f32 prefill (1, 256): {n} {counter} launches; "
+          f"card vs CPU logits max_abs_err {err:.3e}, largest share of the 2e-3 "
+          f"bound {ratio:.3f}")
     check(n == cfg.n_layers and got.shape == want.shape and ratio <= 1.0,
-          "qwen card and CPU logits disagree")
+          f"{arch} card and CPU logits disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -933,55 +1028,73 @@ def run_qwen_prefill(torch, np, dev):
     return launches, summary, (model, cast, flash, model32, params, flash32)
 
 
-def run_qwen_serve(torch, np, dev, reuse):
-    """Phase 8: the serve CLI in process, then its teacher-forced logits
-    against the flash prefill of the same prompt and weights (the CLI draws
-    its weights from seed 0, as phase 7 does)."""
+def run_serve(torch, np, dev, serve_args, counter, reuse, scaled_f32):
+    """Phases 8 and 10: the serve CLI in process (it draws its weights from
+    seed 0, as the prefill phase before it does); its decode launches no
+    kernel. Then, in f32 from the same weights, its teacher-forced decode
+    against the prefill of the same prompt through the ``counter`` kernel:
+    within 2e-3 of each logit (atol and rtol; Qwen) or, with ``scaled_f32``,
+    within 2e-3 x max(1, max|logit|) (Mamba2: its 64 stacked layers of
+    random weights grow the activations). The CLI's own logits, in the
+    config's dtype, are held like that dtype's prefill to their distance
+    from the f32 logits. Last, decode tokens/s with the card synchronised.
+    ``reuse`` is (model, cast weights, prefill, f32 model, f32 weights, f32
+    prefill) from the prefill phase."""
     from repro_torch.kernels import build
     from repro_torch.launch import serve
 
-    model, cast, flash, model32, params32, flash32 = reuse
+    model, cast, prefill, model32, params32, prefill32 = reuse
     tee = _Tee(sys.stdout)
     build.reset_launches()
     sys.stdout = tee
     try:
-        gen, logits = serve.main(SERVE_ARGS)
+        gen, logits = serve.main(serve_args)
         torch.cuda.synchronize()
     finally:
         sys.stdout = tee.out
     launches = dict(build.LAUNCHES)
     rate = re.findall(r"^(\d+) steps in (\S+)s -> (\S+) tok/s$", "".join(tee.parts), re.M)
-    args = serve.build_parser().parse_args(SERVE_ARGS)
+    args = serve.build_parser().parse_args(serve_args)
     B, T, G = args.batch, args.prompt_len, args.gen
     check(len(rate) == 1 and int(rate[0][0]) == T + G, "no throughput line")
-    check(launches["flash_attention"] == 0, "the decode path launched flash_attention")
+    check(sum(launches.values()) == 0, f"the decode path launched kernels: {launches}")
     check(gen.shape == (B, G) and len(logits) == T + G
           and all(bool(torch.isfinite(lg).all()) for lg in logits),
-          "serve did not generate finite (4, 16) tokens")
+          f"serve did not generate finite ({B}, {G}) tokens")
 
     prompt = np.random.default_rng(0).integers(0, model.cfg.vocab_size, (B, T))
     pt = {"tokens": torch.as_tensor(prompt, device=dev)}
-    # f32 (f32 caches): within JAX's 2e-3 of the f32 flash prefill
-    _, logits32 = serve.generate(model32, params32, prompt, 0)
-    truth = flash32(params32, pt)
-    err32, ratio32 = logits_agree(torch, torch.cat(logits32, dim=1), truth,
-                                  LM_TOL, LM_TOL)
-    print(f"  f32 teacher-forced decode vs flash prefill: max_abs_err {err32:.4e}, "
-          f"largest share of the 2e-3 bound {ratio32:.3f}")
-    check(ratio32 <= 1.0, "f32 teacher-forced decode and flash prefill disagree")
-    # the CLI's own logits (bf16): held, like the flash prefill of the same
-    # prompt, to their distance from the f32 logits
+    _, logits32 = serve.generate(model32, params32, prompt, 0)  # f32 caches
+    decoded = torch.cat(logits32, dim=1)
+    del logits32
+    build.reset_launches()
+    truth = prefill32(params32, pt)
+    torch.cuda.synchronize()
+    n32 = build.LAUNCHES[counter]
+    err32, ratio32 = logits_agree(torch, decoded, truth, LM_TOL, LM_TOL)
+    del decoded
+    if scaled_f32:
+        ratio32 = err32 / (LM_TOL * max(1.0, float(truth.abs().max())))
+        rule = "2e-3 x max(1, max|logit|)"
+    else:
+        rule = "2e-3 of each logit"
+    print(f"  f32 teacher-forced decode vs {counter} prefill ({n32} launches): "
+          f"max_abs_err {err32:.4e}, largest share of the bound ({rule}) {ratio32:.3f}")
+    check(n32 == model.cfg.n_layers and ratio32 <= 1.0,
+          f"f32 teacher-forced decode and {counter} prefill disagree")
+    # the CLI's own logits: held, like the prefill of the same prompt in the
+    # same dtype, to their distance from the f32 logits
     served = torch.cat(logits[:T], dim=1)
-    pre = flash(cast, pt)
+    pre = prefill(cast, pt)
     err, _ = logits_agree(torch, served, pre, LM_TOL, LM_TOL)
     top1 = float((served.argmax(-1) == pre.argmax(-1)).float().mean())
     e_dec, _ = logits_agree(torch, served, truth, LM_TOL, LM_TOL)
     e_pre, _ = logits_agree(torch, pre, truth, LM_TOL, LM_TOL)
-    print(f"  {model.cfg.dtype} teacher-forced decode (bf16 caches) vs flash prefill: "
-          f"max_abs_err {err:.4e}, argmax equal at {top1:.2%}; distance from the "
-          f"f32 logits: decode {e_dec:.4e}, flash prefill {e_pre:.4e}")
+    print(f"  {model.cfg.dtype} teacher-forced decode vs {counter} prefill: max_abs_err "
+          f"{err:.4e}, argmax equal at {top1:.2%}; distance from the f32 logits: "
+          f"decode {e_dec:.4e}, prefill {e_pre:.4e}")
     check(e_dec <= 2 * e_pre,
-          "the decode path is more than twice as far from f32 as the flash prefill")
+          "the decode path is more than twice as far from f32 as the prefill")
 
     # decode speed with the card synchronised: the whole loop, host clock
     torch.cuda.synchronize()
@@ -999,6 +1112,81 @@ def run_qwen_serve(torch, np, dev, reuse):
                    decode_vs_prefill_err=err, argmax_equal=top1,
                    decode_from_f32_err=e_dec, prefill_from_f32_err=e_pre)
     return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: LM serving of Mamba2-2.7B at full width
+# ---------------------------------------------------------------------------
+def run_mamba_prefill(torch, np, dev):
+    """Phase 9. Returns (launches, summary, the models and weights phase 10
+    reuses)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model
+
+    cfg = get_arch(MAMBA)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), device=dev)  # f32
+    cast = model.cast(params)  # once at load: bf16, the stacked 1-D params too
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tok = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                             PREFILL_SHAPE), device=dev)
+    inputs = {"tokens": tok}
+    prefill = build_prefill_step(model)
+    build.reset_launches()
+    logits = prefill(cast, inputs)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
+          f"{cfg.d_inner}, {cfg.n_mamba_heads} SSD heads of {cfg.mamba_headdim}, state "
+          f"{cfg.ssm_state}, vocab {cfg.vocab_size}, dtype {cfg.dtype}; weights drawn "
+          f"and cast in {init_s:.1f} s")
+    print(f"  prefill {PREFILL_SHAPE}: logits {tuple(logits.shape)} {logits.dtype}, "
+          f"{launches['ssd_scan']} ssd_scan launches, {launches['flash_attention']} "
+          f"flash launches")
+    check(launches["ssd_scan"] == cfg.n_layers and launches["flash_attention"] == 0,
+          f"ssd_scan launched {launches['ssd_scan']} times (flash "
+          f"{launches['flash_attention']}), not {cfg.n_layers}, in one forward")
+    check(tuple(logits.shape) == (*PREFILL_SHAPE, model.padded_vocab)
+          and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+          "prefill logits not finite bf16 of the padded vocab")
+    del logits
+
+    # speed: host clock around synchronised forwards, then one traced forward
+    reps = 3
+    prefill(cast, inputs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        prefill(cast, inputs)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / reps * 1e3
+    tokens = PREFILL_SHAPE[0] * PREFILL_SHAPE[1]
+    kern = trace_by_kernel(torch, lambda: prefill(cast, inputs))
+    dev_ms = sum(kern.values()) / 1e3
+    ssd_ms = sum(us for key, us in kern.items() if "ssd_kernel" in key) / 1e3
+    mm_ms = sum(us for key, us in kern.items()
+                if any(w in key for w in ("nvjet", "gemm", "cutlass"))) / 1e3
+    other_ms = dev_ms - ssd_ms - mm_ms
+    print(f"  prefill forward {fwd_ms:.2f} ms ({tokens / fwd_ms * 1e3:.0f} tokens/s); "
+          f"device time {dev_ms:.2f} ms: ssd_scan kernel {ssd_ms:.2f} ms "
+          f"({ssd_ms / dev_ms:.1%}), matmuls {mm_ms:.2f} ms ({mm_ms / dev_ms:.1%}), "
+          f"elementwise and copies {other_ms:.2f} ms ({other_ms / dev_ms:.1%})")
+    print("  device time of the forward by kernel:")
+    for key, us in sorted(kern.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {us / 1e3:9.3f} ms  {key[:100]}")
+    summary = dict(init_s=init_s, forward_ms=fwd_ms,
+                   prefill_tokens_per_s=tokens / fwd_ms * 1e3, device_ms=dev_ms,
+                   ssd_ms=ssd_ms, ssd_share=ssd_ms / dev_ms, matmul_ms=mm_ms,
+                   other_ms=other_ms, device_busy=dev_ms / fwd_ms)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    return launches, summary, (model, cast, prefill, model32, params,
+                               build_prefill_step(model32))
 
 
 def main() -> int:
@@ -1041,16 +1229,17 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     rows = check_pairwise(torch, dev, gen) + check_l1_bwd(torch, dev, gen) \
         + check_dedup(torch, np, dev, gen, kg) + check_update(torch, dev, gen) \
-        + check_flash(torch, dev, gen)
+        + check_flash(torch, dev, gen) + check_ssd(torch, dev, gen)
     for r in rows:
         print(f"  {r['name']:16s} {r['shape']:>18s}: {_fmt(r)}  err "
               f"{r['max_abs_err']:.2e} <= {r['tol']:.2e}")
 
-    print("== 4. card vs CPU: three dim-400 steps at batch 256, k 64; a 2-layer "
-          "Qwen prefill")
+    print("== 4. card vs CPU: three dim-400 steps at batch 256, k 64; 2-layer "
+          "Qwen and Mamba2 prefills")
     for model in ("transe_l2", "transe_l1"):
         check_agreement(torch, np, dev, model)
-    check_lm_agreement(torch, np, dev)
+    check_lm_agreement(torch, np, dev, QWEN, "flash_attention", use_flash=True)
+    check_lm_agreement(torch, np, dev, MAMBA, "ssd_scan", use_flash=False)
 
     print(f"== 5. TransE_l2 path: FB15k, {MAIN_PATH_STEPS} steps")
     l2_launches, l2_path, *_ = run_path(torch, np, "transe_l2", [], 20)
@@ -1065,7 +1254,18 @@ def main() -> int:
     pre_launches, pre_path, reuse = run_qwen_prefill(torch, np, dev)
 
     print(f"== 8. Qwen serve: python -m repro_torch.launch.serve {' '.join(SERVE_ARGS)}")
-    serve_launches, serve_path = run_qwen_serve(torch, np, dev, reuse)
+    serve_launches, serve_path = run_serve(torch, np, dev, SERVE_ARGS, "flash_attention",
+                                           reuse, scaled_f32=False)
+    del reuse
+    torch.cuda.empty_cache()
+
+    print(f"== 9. Mamba2 prefill: {MAMBA} at full width, {PREFILL_SHAPE} tokens, ssd_scan")
+    m_pre_launches, m_pre_path, reuse = run_mamba_prefill(torch, np, dev)
+
+    print(f"== 10. Mamba2 serve: python -m repro_torch.launch.serve "
+          f"{' '.join(MAMBA_SERVE_ARGS)}")
+    m_serve_launches, m_serve_path = run_serve(torch, np, dev, MAMBA_SERVE_ARGS,
+                                               "ssd_scan", reuse, scaled_f32=True)
     del reuse
 
     kernels = []
@@ -1073,7 +1273,9 @@ def main() -> int:
         by_path = {"transe_l2": l2_launches[r["name"]],
                    "transe_l1": l1_launches[r["name"]],
                    "qwen_prefill": pre_launches[r["name"]],
-                   "qwen_serve": serve_launches[r["name"]]}
+                   "qwen_serve": serve_launches[r["name"]],
+                   "mamba2_prefill": m_pre_launches[r["name"]],
+                   "mamba2_serve": m_serve_launches[r["name"]]}
         kernels.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1081,9 +1283,12 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], event_ms=r["event_ms"],
             shape=r["shape"],
-            **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {})))
+            **{k: r[k] for k in ("ref_err", "ref_tol", "library", "other_shapes")
+               if k in r}))
     print(json.dumps({"paths": {"transe_l2": l2_path, "transe_l1": l1_path,
-                                "qwen_prefill": pre_path, "qwen_serve": serve_path}}))
+                                "qwen_prefill": pre_path, "qwen_serve": serve_path,
+                                "mamba2_prefill": m_pre_path,
+                                "mamba2_serve": m_serve_path}}))
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -39,13 +39,14 @@ SIGNATURES = {
     "l1_bwd": ("l1_bwd_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, *[_I] * 9, _F, _I, _P]),
+    "ssd_scan": ("ssd_scan_launch", [*[_P] * 6, *[_I] * 5, _P]),
 }
 
 # launches per kernel; the pairwise kernel counts per mode, the l1 backward
 # per product (d_o, d_n)
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("pairwise_dot", "pairwise_l2sq", "pairwise_l1", "dedup_aggregate",
-     "fused_update", "l1_bwd_do", "l1_bwd_dn", "flash_attention"), 0)
+     "fused_update", "l1_bwd_do", "l1_bwd_dn", "flash_attention", "ssd_scan"), 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

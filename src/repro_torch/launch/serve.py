@@ -3,18 +3,23 @@ of the zoo, reduced or full.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --full --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+        --full --batch 4 --prompt-len 32 --gen 16
 
 A port of the JAX package's launch/serve.py: the prompt goes in token by
-token through ``build_serve_step`` to fill the KV caches, then ``--gen``
-tokens are greedy-decoded, through ``run_loop`` and ``ThroughputHook``. The
-prompts are ``np.random.default_rng(seed).integers(0, vocab, (B, T))``, as
-the JAX package makes them; the weights are drawn from a
+token through ``build_serve_step`` to fill the decode caches (the KV
+caches of attention layers; the conv windows and SSM state of Mamba2
+layers), then ``--gen`` tokens are greedy-decoded, through ``run_loop``
+and ``ThroughputHook``. The prompts are
+``np.random.default_rng(seed).integers(0, vocab, (B, T))``, as the JAX
+package makes them; the weights are drawn from a
 ``torch.Generator`` seeded with ``--seed``. Without ``--full`` the reduced
 config runs. ``--device`` defaults to cuda and raises without a GPU;
 ``--device cpu`` runs the same code on the CPU. This path launches no
-kernel of the port: decode attention is plain PyTorch, as it is plain jnp
-in JAX. Batched prefill through the flash kernel is
-``models.steps.build_prefill_step(model, use_flash=True)``.
+kernel of the port: decode attention and the Mamba2 recurrence are plain
+PyTorch, as they are plain jnp in JAX. Batched prefill is
+``models.steps.build_prefill_step(model, use_flash=True)``, through the
+flash kernel (attention) and the ssd_scan kernel (Mamba2).
 
 Not ported yet, and refused with the ROADMAP item that ports them:
 telemetry files (``--metrics-out``, ``--trace-out``).

@@ -1,8 +1,11 @@
-"""Architecture assembly of the LM zoo: attention-only, dense-FFN decoders.
+"""Architecture assembly of the LM zoo: decoders of attention or Mamba2
+layers with dense FFNs.
 
 A port of the JAX package's models/transformer.py for the configs whose
-layers are all (attention, dense FFN) with no encoder and no frontend:
-Qwen1.5-0.5B, H2O-Danube-1.8B (SWA) and Minitron-4B. ``build_model(cfg)``
+layers are (attention or Mamba2 mixer, dense FFN or none) with no encoder
+and no frontend: Qwen1.5-0.5B, H2O-Danube-1.8B (SWA), Minitron-4B and
+Mamba2-2.7B (attention-free, no FFN). The layer kinds follow JAX's
+``_pattern`` and the stacking its ``_period``. ``build_model(cfg)``
 returns a ``Model`` exposing
 
     defs / init(gen, device) / cast(params)  parameters (JAX's tree layout)
@@ -10,6 +13,11 @@ returns a ``Model`` exposing
     hidden(params, inputs)                   final hidden states
     cache_defs(batch, seq) / init_caches     decode caches
     decode_step(params, caches, token, index) -> (logits, caches)
+
+A Mamba2 layer runs the SSD scan through ``kernels.ssd_scan`` in
+``forward`` (the CUDA kernel for tensors on the card, whatever
+``use_flash`` says) and the recurrence in ``decode_step``; its decode
+cache is the conv windows and the SSM state, written in place.
 
 The parameter tree has JAX's keys and layout: with ``scan_layers`` (full
 configs) the layers are stacked on a leading axis under ``layers/l0``; the
@@ -22,8 +30,9 @@ promotes to f32 at its 1-D biases and norms. ``cast(params)`` does that
 once, so a server holds the cast copy and the cast in ``forward`` finds
 nothing left to do.
 
-MoE, Mamba2 / Jamba, MLA, the Whisper encoder-decoder and the LLaVA frontend
-raise ``NotImplementedError`` at ``build_model``, naming their ROADMAP item.
+MoE (and with it Jamba), MLA, the Whisper encoder-decoder and the LLaVA
+frontend raise ``NotImplementedError`` at ``build_model``, naming their
+ROADMAP item.
 ``params_from_arrays`` / ``params_to_arrays`` carry weights between the JAX
 package (nested numpy arrays) and the port.
 """
@@ -31,14 +40,15 @@ package (nested numpy arrays) and the port.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.common.config import ArchConfig, AttentionKind, Frontend
+from repro_torch.common.config import ArchConfig, AttentionKind, FFNKind, Frontend, MixerKind
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (
     ParamDef, materialize, matmul, rmsnorm, stack_defs, torch_dtype, tree_map,
 )
@@ -49,30 +59,49 @@ Params = Dict[str, Any]
 def unported(cfg: ArchConfig) -> Optional[str]:
     """Why ``cfg`` does not run in the port yet, or None."""
     if cfg.n_experts or cfg.moe_period:
-        what = "MoE layers (mixtral, dbrx)"
-    elif cfg.mixer_pattern != "attn":
-        what = "Mamba2 / Jamba layers (with ssd_scan, Queue B4)"
+        what = "MoE layers (mixtral, dbrx, jamba)"
+    elif cfg.mixer_pattern not in ("attn", "mamba"):
+        what = f"the {cfg.mixer_pattern} layer pattern"
     elif cfg.attention == AttentionKind.MLA:
         what = "MLA attention (minicpm3)"
     elif cfg.enc_dec:
         what = "the Whisper encoder-decoder"
     elif cfg.frontend != Frontend.NONE:
         what = "the LLaVA vision frontend"
-    elif cfg.d_ff <= 0:
-        what = "layers without an FFN"
     else:
         return None
     return f"{cfg.name}: {what} not yet ported to repro_torch: ROADMAP Queue A10"
 
 
-def _layer_defs(cfg: ArchConfig) -> Dict[str, Any]:
+Kind = Tuple[MixerKind, FFNKind]
+
+
+def _pattern(cfg: ArchConfig) -> List[Kind]:
+    return [(cfg.mixer_of(i), cfg.ffn_of(i)) for i in range(cfg.n_layers)]
+
+
+def _period(pat: List[Kind]) -> int:
+    n = len(pat)
+    for p in range(1, n + 1):
+        if n % p == 0 and all(pat[i] == pat[i % p] for i in range(n)):
+            return p
+    return n
+
+
+def _layer_defs(cfg: ArchConfig, kind: Kind) -> Dict[str, Any]:
+    """One layer: ln1 and its mixer (``attn`` or ``mamba``), then ``ln2``
+    and the dense ``ffn`` when d_ff > 0 (Mamba2 has none)."""
+    mixer, _ = kind
     d = cfg.d_model
-    return {
-        "ln1": ParamDef((d,), init="ones"),
-        "attn": A.attn_defs(cfg),
-        "ln2": ParamDef((d,), init="ones"),
-        "ffn": M.ffn_defs(cfg),
-    }
+    out: Dict[str, Any] = {"ln1": ParamDef((d,), init="ones")}
+    if mixer == MixerKind.ATTN:
+        out["attn"] = A.attn_defs(cfg)
+    else:
+        out["mamba"] = SSM.mamba_defs(cfg)
+    if cfg.d_ff > 0:
+        out["ln2"] = ParamDef((d,), init="ones")
+        out["ffn"] = M.ffn_defs(cfg)
+    return out
 
 
 @dataclasses.dataclass
@@ -84,10 +113,10 @@ class Model:
         if why:
             raise NotImplementedError(why)
         cfg = self.cfg
-        # every layer is (attention, dense FFN): the pattern repeats with
-        # period 1, so scan_layers stacks all layers into one group
-        self.period = 1 if cfg.scan_layers else cfg.n_layers
+        self.pattern = _pattern(cfg)
+        self.period = _period(self.pattern) if cfg.scan_layers else cfg.n_layers
         self.n_groups = cfg.n_layers // self.period
+        self.kinds = [self.pattern[i % self.period] for i in range(cfg.n_layers)]
         self.dtype = torch_dtype(cfg.dtype)
         self._build_defs()
 
@@ -101,7 +130,8 @@ class Model:
         if not cfg.tie_embeddings:
             d["unembed"] = ParamDef((cfg.d_model, self.padded_vocab), init="fan_in")
         d["final_ln"] = ParamDef((cfg.d_model,), init="ones")
-        per_group = {f"l{j}": _layer_defs(cfg) for j in range(self.period)}
+        per_group = {f"l{j}": _layer_defs(cfg, self.pattern[j])
+                     for j in range(self.period)}
         d["layers"] = (stack_defs([per_group] * self.n_groups) if self.n_groups > 1
                        else per_group)
         if cfg.param_dtype != "float32":
@@ -130,12 +160,20 @@ class Model:
                 yield pg[f"l{j}"]
 
     # --------------------------------------------------------------- forward
-    def _apply_layer(self, x, p, use_flash=False):
+    def _ffn(self, x, p):
+        cfg = self.cfg
+        if cfg.d_ff <= 0:
+            return x
+        return x + M.ffn_apply(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+
+    def _apply_layer(self, x, p, kind: Kind, use_flash=False):
         cfg = self.cfg
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-        x = x + A.attention_train(p["attn"], h, cfg, causal=True, use_flash=use_flash)
-        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + M.ffn_apply(p["ffn"], h, cfg)
+        if kind[0] == MixerKind.ATTN:
+            h = A.attention_train(p["attn"], h, cfg, causal=True, use_flash=use_flash)
+        else:
+            h = SSM.mamba_train(p["mamba"], h, cfg)
+        return self._ffn(x + h, p)
 
     def _unembed(self, cast, x):
         w = cast["tok_emb"].T if self.cfg.tie_embeddings else cast["unembed"]
@@ -149,8 +187,8 @@ class Model:
         """Final hidden states (forward minus unembedding)."""
         cast = self.cast(params)
         x = self.embed(cast, inputs["tokens"])
-        for p in self._layers(cast["layers"]):
-            x = self._apply_layer(x, p, use_flash=use_flash)
+        for kind, p in zip(self.kinds, self._layers(cast["layers"])):
+            x = self._apply_layer(x, p, kind, use_flash=use_flash)
         return rmsnorm(x, cast["final_ln"], self.cfg.norm_eps)
 
     def forward(self, params: Params, inputs: Dict[str, torch.Tensor],
@@ -161,8 +199,14 @@ class Model:
 
     # ---------------------------------------------------------------- decode
     def cache_defs(self, batch: int, seq: int) -> Dict[str, Any]:
-        per_group = {f"l{j}": A.cache_defs(self.cfg, batch, seq)
-                     for j in range(self.period)}
+        """Per layer: the k and v cache of an attention layer, the conv
+        windows and SSM state of a Mamba2 layer."""
+        def one(kind):
+            if kind[0] == MixerKind.ATTN:
+                return A.cache_defs(self.cfg, batch, seq)
+            return SSM.mamba_state_defs(self.cfg, batch)
+
+        per_group = {f"l{j}": one(self.pattern[j]) for j in range(self.period)}
         if self.n_groups > 1:
             return stack_defs([per_group] * self.n_groups)
         return per_group
@@ -177,12 +221,14 @@ class Model:
         cfg = self.cfg
         cast = self.cast(params)
         x = self.embed(cast, token)  # (B, 1, D)
-        for p, c in zip(self._layers(cast["layers"]), self._layers(caches)):
+        for kind, p, c in zip(self.kinds, self._layers(cast["layers"]),
+                              self._layers(caches)):
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            h, _ = A.attention_decode(p["attn"], h, c, index, cfg)
-            x = x + h
-            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-            x = x + M.ffn_apply(p["ffn"], h, cfg)
+            if kind[0] == MixerKind.ATTN:
+                h, _ = A.attention_decode(p["attn"], h, c, index, cfg)
+            else:
+                h, _ = SSM.mamba_decode(p["mamba"], h, c, cfg)
+            x = self._ffn(x + h, p)
         x = rmsnorm(x, cast["final_ln"], cfg.norm_eps)
         return self._unembed(cast, x), caches
 

@@ -20,6 +20,8 @@ from repro_torch.kernels.kge_score.ops import (
 from repro_torch.kernels.kge_score.ref import l1_grads_ref, pairwise_ref
 from repro_torch.kernels.sparse_adagrad.ops import dedup_aggregate, fused_sparse_adagrad
 from repro_torch.kernels.sparse_adagrad.ref import dedup_aggregate_ref, fused_update_ref
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_batched, ssd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -276,5 +278,123 @@ def test_flash_prefill_on_card_matches_cpu(cuda, arch):
     got = prefill(tree_map(lambda t: t.to(cuda), params), {"tokens": tok.to(cuda)})
     torch.cuda.synchronize()
     assert build.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), prefill(params, {"tokens": tok}),
+                               rtol=2e-3, atol=2e-3)
+
+
+def _ssd_inputs(shape, cuda, seed, dt_max=0.15, a_max=2.0):
+    """x, dt, A, B, C of JAX's sweep (tests/test_kernels.py:86-92): dt in
+    [0.05, dt_max], A in [-a_max, -1]."""
+    Bsz, T, H, P, N = shape
+    rng = _rng(seed)
+    arrs = (rng.standard_normal((Bsz, T, H, P)),
+            0.05 + rng.random((Bsz, T, H)) * (dt_max - 0.05),
+            -1.0 - rng.random(H) * (a_max - 1.0),
+            rng.standard_normal((Bsz, T, N)) * 0.5,
+            rng.standard_normal((Bsz, T, N)) * 0.5)
+    return [torch.tensor(a, dtype=torch.float32, device=cuda) for a in arrs]
+
+
+# (B, T, H, P, N): the Mamba2-2.7B prefill's shape, a long sequence, a ragged
+# T, T = 1, JAX's sweep shapes, and the reduced Mamba2's heads
+SSD_CASES = [
+    (4, 2048, 80, 64, 128),
+    (1, 8192, 80, 64, 128),
+    (1, 100, 4, 32, 16),
+    (4, 1, 80, 64, 128),
+    (1, 128, 4, 32, 16),
+    (1, 256, 2, 64, 32),
+    (2, 64, 8, 16, 128),
+    (1, 32, 1, 8, 8),
+    (2, 77, 16, 32, 16),
+]
+
+
+def test_ssd_scan_kernel_takes_views(cuda):
+    """Non-contiguous and 16-byte-misaligned views (B and C as slices of
+    one (B, T, 2N) tensor, as the model makes them, and x one float past a
+    boundary) give what contiguous copies give."""
+    x, dt, A, B, C = _ssd_inputs((2, 130, 8, 32, 16), cuda, 17)
+    bc = torch.cat([B, C], dim=-1)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    xs = flat[1:].view(x.shape)
+    xs.copy_(x)
+    y = ssd_scan(xs, dt, A, bc[..., :16], bc[..., 16:])
+    torch.testing.assert_close(y, ssd_scan(x, dt, A, B, C), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", SSD_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_ssd_scan_kernel_matches_plain(cuda, shape):
+    """Against the plain chunked version (f32 sums in another order: 2e-5 of
+    the largest value) and the step-by-step ``ssd_ref`` (JAX's own bound,
+    1e-4, tests/test_kernels.py:94-99)."""
+    x, dt, A, B, C = _ssd_inputs(shape, cuda, 13)
+    before = build.LAUNCHES["ssd_scan"]
+    y = ssd_scan(x, dt, A, B, C)
+    plain = ssd_chunked_batched(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ssd_scan"] == before + 1
+    assert y.shape == x.shape and y.dtype == torch.float32
+    assert float((y - plain).abs().max()) <= 2e-5 * max(1.0, float(plain.abs().max()))
+    if shape[1] <= 2048:
+        ref = torch.stack([ssd_ref(x[b], dt[b], A, B[b], C[b])[0] for b in range(shape[0])])
+        assert float((y - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+def test_ssd_scan_kernel_steep_decay(cuda):
+    """dt up to 1 and A down to -12: cs falls by hundreds within a chunk, so
+    exp(-cs) would overflow f32 and exp(cs_t - cs_s) for t < s is inf; the
+    kernel must stay finite and agree."""
+    x, dt, A, B, C = _ssd_inputs((2, 300, 8, 64, 128), cuda, 14, dt_max=1.0, a_max=12.0)
+    y = ssd_scan(x, dt, A, B, C)
+    plain = ssd_chunked_batched(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert float((y - plain).abs().max()) <= 2e-5 * max(1.0, float(plain.abs().max()))
+
+
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C = _ssd_inputs((1, 16, 2, 8, 8), cuda, 15)
+    with pytest.raises(TypeError):
+        ssd_scan(x.double(), dt, A, B, C)
+    with pytest.raises(TypeError):
+        ssd_scan(x, dt, A, B.bfloat16(), C)
+    with pytest.raises(ValueError, match="takes x"):
+        ssd_scan(x[0], dt, A, B, C)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ssd_scan(x, dt, A[:1], B, C)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd_scan(x, dt, A.cpu(), B, C)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ssd_scan(torch.zeros(1, 16, 2, 80, device=cuda), dt, A, B, C)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ssd_scan(x[..., :6], dt, A, B, C)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x.requires_grad_(), dt, A, B, C)
+    with torch.no_grad():
+        assert ssd_scan(x, dt, A, B, C).shape == x.shape
+
+
+def test_mamba2_prefill_on_card_matches_cpu(cuda):
+    """Mamba2-2.7B at full width cut to 2 layers, kept apart, in f32: the
+    prefill through the kernel on the card and through the plain chunked
+    version on the CPU, from the same weights (2e-3); one launch a layer."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(ARCHS["mamba2-2.7b"], n_layers=2, dtype="float32",
+                              scan_layers=False)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tok = torch.tensor(_rng(16).integers(0, cfg.vocab_size, (1, 100)))
+    prefill = build_prefill_step(model)
+    before = build.LAUNCHES["ssd_scan"]
+    got = prefill(tree_map(lambda t: t.to(cuda), params), {"tokens": tok.to(cuda)})
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ssd_scan"] == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), prefill(params, {"tokens": tok}),
                                rtol=2e-3, atol=2e-3)

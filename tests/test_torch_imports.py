@@ -41,7 +41,9 @@ def test_port_modules_exist():
     for m in ("repro_torch.core.step", "repro_torch.kernels.kge_score.ops",
               "repro_torch.kernels.sparse_adagrad.ops", "repro_torch.launch.train",
               "repro_torch.kernels.flash_attention.ops", "repro_torch.models.transformer",
-              "repro_torch.models.steps", "repro_torch.launch.serve"):
+              "repro_torch.models.steps", "repro_torch.launch.serve",
+              "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan.ops",
+              "repro_torch.kernels.ssd_scan.ref"):
         assert m in mods
 
 

@@ -1,5 +1,6 @@
 """The port's LM-zoo modules (models/*) against the JAX package's, on the
-reduced Qwen1.5-0.5B (MHA, QKV bias) and H2O-Danube-1.8B (GQA, SWA) in f32,
+reduced Qwen1.5-0.5B (MHA, QKV bias), H2O-Danube-1.8B (GQA, SWA) and
+Mamba2-2.7B (SSD mixer, no FFN) in f32,
 with JAX's weights carried across by ``params_from_arrays``. Inputs from
 numpy seeds; 2e-5 for single ops, 2e-3 for attention and whole models (the
 bound of tests/test_flash_serving.py and tests/test_models.py)."""
@@ -29,7 +30,7 @@ from repro_torch.models.transformer import (
 
 torch.set_num_threads(2)
 
-ARCH = {"qwen": "qwen1.5-0.5b", "danube": "h2o-danube-1.8b"}
+ARCH = {"qwen": "qwen1.5-0.5b", "danube": "h2o-danube-1.8b", "mamba": "mamba2-2.7b"}
 
 
 def _cfgs(name, **kw):
@@ -103,7 +104,7 @@ def test_attention_train_matches_jax_chunked(name, use_flash):
 
 # -------------------------------------------------------------------- model
 @pytest.mark.parametrize("use_flash", [False, True])
-@pytest.mark.parametrize("name", ["qwen", "danube"])
+@pytest.mark.parametrize("name", ["qwen", "danube", "mamba"])
 def test_forward_matches_jax(name, use_flash):
     jm, jp, m, p = _carried(*_cfgs(name, window=24))
     tok = _tokens(m.cfg, 2, 48)
@@ -148,10 +149,12 @@ def _decode(m, p, tok, steps):
     return torch.stack(out, dim=1)
 
 
-@pytest.mark.parametrize("name,window,steps", [("qwen", 64, 12), ("danube", 6, 16)])
+@pytest.mark.parametrize("name,window,steps", [("qwen", 64, 12), ("danube", 6, 16),
+                                               ("mamba", 0, 12)])
 def test_decode_matches_jax(name, window, steps):
     """Teacher-forced decode against JAX's decode_step; Danube with window 6
-    over 16 steps, so that its ring cache wraps (tests/test_models.py)."""
+    over 16 steps, so that its ring cache wraps (tests/test_models.py);
+    Mamba2 through the conv windows and the SSM state."""
     jm, jp, m, p = _carried(*_cfgs(name, window=window))
     tok = _tokens(m.cfg, 2, steps, seed=5)
     caches = jax.tree.map(lambda d: jnp.zeros(d.shape, d.dtype),
@@ -167,9 +170,12 @@ def test_decode_matches_jax(name, window, steps):
     _close(_decode(m, p, tok, steps), np.stack(want, axis=1), 2e-3)
 
 
-@pytest.mark.parametrize("name,window,steps", [("qwen", 64, 12), ("danube", 6, 16)])
+@pytest.mark.parametrize("name,window,steps", [("qwen", 64, 12), ("danube", 6, 16),
+                                               ("mamba", 0, 12)])
 def test_decode_matches_forward(name, window, steps):
-    """The port's own teacher-forced decode equals its flash prefill."""
+    """The port's own teacher-forced decode equals its flash prefill (for
+    Mamba2: the recurrence equals the chunked scan; JAX's
+    test_decode_matches_forward_mamba bound, 2e-3)."""
     _, cfg = _cfgs(name, window=window)
     m = build_model(cfg)
     p = m.init(torch.Generator().manual_seed(0))
@@ -179,17 +185,17 @@ def test_decode_matches_forward(name, window, steps):
 
 
 # ---------------------------------------------------- weights and dtypes
-@pytest.mark.parametrize("scan_layers", [True, False])
-def test_params_round_trip(scan_layers):
+def _round_trip(name, scan_layers, leaf, width):
     """JAX's tree -> port -> numpy gives it back, for the stacked layout
     (a full config's defs, here at reduced width with 3 layers) and the
     per-layer one (a reduced config)."""
-    jcfg, cfg = _cfgs("qwen", scan_layers=scan_layers, n_layers=3)
+    jcfg, cfg = _cfgs(name, scan_layers=scan_layers, n_layers=3)
     jm, jp, m, p = _carried(jcfg, cfg, seed=7)
     stacked = "l1" not in p["layers"]
     assert stacked == scan_layers and m.n_groups == jm.n_groups
     if stacked:
-        assert p["layers"]["l0"]["attn"]["bq"].shape == (3, cfg.n_heads * cfg.head_dim)
+        mixer, key = leaf
+        assert p["layers"]["l0"][mixer][key].shape == (3, width(cfg))
     back = params_to_arrays(p)
     flat = jax.tree_util.tree_leaves_with_path(jax.tree.map(np.asarray, jp))
     assert len(flat) == len(jax.tree_util.tree_leaves(back))
@@ -204,12 +210,25 @@ def test_params_round_trip(scan_layers):
         params_from_arrays(m, bad)
 
 
+@pytest.mark.parametrize("scan_layers", [True, False])
+def test_params_round_trip(scan_layers):
+    _round_trip("qwen", scan_layers, ("attn", "bq"), lambda c: c.n_heads * c.head_dim)
+
+
+@pytest.mark.parametrize("scan_layers", [True, False])
+def test_params_round_trip_mamba(scan_layers):
+    """Mamba2's ``layers/l0/mamba/*`` stacked, and its per-layer tree."""
+    _round_trip("mamba", scan_layers, ("mamba", "A_log"), lambda c: c.n_mamba_heads)
+
+
 @pytest.mark.parametrize("name,scan_layers", [("qwen", False), ("danube", False),
-                                              ("qwen", True)])
+                                              ("qwen", True), ("mamba", False),
+                                              ("mamba", True)])
 def test_bf16_logit_dtype_matches_jax(name, scan_layers):
     """JAX's promotion decides the types: the reduced Qwen's 1-D f32 biases
     promote its activations to f32 (f32 logits); Danube has none (bf16);
-    with stacked layers Qwen's biases are 2-D, cast to bf16 (bf16)."""
+    with stacked layers Qwen's biases are 2-D, cast to bf16 (bf16). Mamba2's
+    1-D A_log, dt_bias, D_skip and norm_z do the same."""
     jcfg = dataclasses.replace(JAX_ARCHS[ARCH[name]].reduced(), scan_layers=scan_layers)
     cfg = dataclasses.replace(ARCHS[ARCH[name]].reduced(), scan_layers=scan_layers)
     jm, jp, m, p = _carried(jcfg, cfg)
@@ -218,6 +237,27 @@ def test_bf16_logit_dtype_matches_jax(name, scan_layers):
     got = m.forward(m.cast(p), {"tokens": torch.tensor(tok)}, use_flash=True)
     assert str(got.dtype).split(".")[-1] == str(want.dtype)
     assert bool(torch.isfinite(got.float()).all())
+
+
+def test_full_mamba_logit_dtype_matches_jax_eval_shape():
+    """The full Mamba2-2.7B (64 stacked layers, d 2560, bf16): jax.eval_shape
+    of its forward against the port's forward on the meta device (no
+    memory); both give bf16 logits of the padded vocab. The stacked 2-D
+    A_log, dt_bias, D_skip, norm_z and ln1 are cast to bf16 with the
+    matrices. T 256 keeps the meta run short."""
+    from repro_torch.models.layers import tree_map
+
+    shape = (4, 256)
+    jm = jax_build(JAX_ARCHS[ARCH["mamba"]])
+    want = jax.eval_shape(lambda q, t: jm.forward(q, {"tokens": t}),
+                          jm.abstract_params(), jax.ShapeDtypeStruct(shape, jnp.int32))
+    m = build_model(ARCHS[ARCH["mamba"]])
+    assert (m.period, m.n_groups) == (jm.period, jm.n_groups) == (1, 64)
+    p = tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), m.defs)
+    got = build_prefill_step(m)(p, {"tokens": torch.zeros(shape, dtype=torch.long,
+                                                           device="meta")})
+    assert tuple(got.shape) == want.shape == (*shape, 50280)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype) == "bfloat16"
 
 
 def test_cast_once_keeps_forward():
@@ -232,7 +272,7 @@ def test_cast_once_keeps_forward():
     assert torch.equal(m.forward(p, {"tokens": tok}), m.forward(cast, {"tokens": tok}))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-2.7b", "minicpm3-4b",
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b", "minicpm3-4b",
                                   "whisper-large-v3", "llava-next-mistral-7b"])
 def test_build_model_refuses_unported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A10"):

@@ -1,7 +1,8 @@
 """The port's serve driver (launch/serve.py, engine.run_loop,
 ThroughputHook) against the JAX package's serve loop on the reduced
-Qwen1.5-0.5B in its config dtype, from JAX's weights."""
+Qwen1.5-0.5B and Mamba2-2.7B in their config dtype, from JAX's weights."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -45,9 +46,12 @@ def _jax_serve_loop(jm, jp, tokens, gen):
     return np.concatenate(out, axis=1), logs
 
 
-def test_serve_loop_matches_jax():
-    arch = "qwen1.5-0.5b"
-    jm, m = jax_build(JAX_ARCHS[arch].reduced()), build_model(ARCHS[arch].reduced())
+def _serve_loop_matches_jax(arch, tol=TOL, **kw):
+    """Teacher-forced logits within ``tol``; the greedy tokens equal up to
+    the first near-tie (a top-2 gap within ``tol``). ``kw`` overrides fields
+    of both reduced configs."""
+    jm = jax_build(dataclasses.replace(JAX_ARCHS[arch].reduced(), **kw))
+    m = build_model(dataclasses.replace(ARCHS[arch].reduced(), **kw))
     jp = jm.init(jax.random.key(0))
     params = m.cast(params_from_arrays(m, jax.tree.map(np.asarray, jp)))
     B, T, gen = 2, 8, 6
@@ -59,13 +63,31 @@ def test_serve_loop_matches_jax():
     assert got.shape == (B, gen) and len(logits) == T + gen
     for i in range(T):  # teacher-forced: the same inputs in both
         np.testing.assert_allclose(logits[i][:, 0].float().numpy(), want_logits[i],
-                                   rtol=TOL, atol=TOL)
+                                   rtol=tol, atol=tol)
     for b in range(B):
         for t in range(gen):
             top2 = np.sort(want_logits[T - 1 + t][b])[-2:]
-            if top2[1] - top2[0] <= TOL:
+            if top2[1] - top2[0] <= tol:
                 break  # a near-tie: the two may pick either, and then diverge
             assert got[b, t] == want[b, t], (b, t)
+
+
+def test_serve_loop_matches_jax():
+    _serve_loop_matches_jax("qwen1.5-0.5b")
+
+
+def test_serve_loop_matches_jax_mamba():
+    """Mamba2's recurrence (conv windows, SSM state), in f32, within 2e-3."""
+    _serve_loop_matches_jax("mamba2-2.7b", dtype="float32")
+
+
+def test_serve_loop_matches_jax_mamba_bf16():
+    """The same in the config's dtype, bf16, as the CLI serves it. The two
+    packages' teacher-forced logits differ by 4.6e-3 to 7.2e-3 here
+    (max|logit| 1.36), about as much as JAX's own jitted and eager loops
+    differ from each other (2.4e-3 to 5.3e-3): bf16 rounding in a different
+    order, so the bound is 1.5e-2, about 3x the typical gap."""
+    _serve_loop_matches_jax("mamba2-2.7b", tol=1.5e-2)
 
 
 def test_serve_cli_on_cpu():
@@ -79,6 +101,21 @@ def test_serve_cli_on_cpu():
     assert lines[0].startswith("12 steps in ") and lines[0].endswith(" tok/s")
     assert lines[1] == "arch=qwen1.5-0.5b reduced=True batch=2"
     assert lines[2] == "generated tokens:"
+    rows = [ln.strip(" []").split() for ln in lines[3:5]]
+    assert [len(r) for r in rows] == [4, 4]
+
+
+def test_serve_cli_on_cpu_mamba():
+    """The reduced Mamba2 through the CLI, as README gives the command."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "mamba2-2.7b", "--batch", "2", "--prompt-len", "8", "--gen", "4"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("12 steps in ") and lines[0].endswith(" tok/s")
+    assert lines[1] == "arch=mamba2-2.7b reduced=True batch=2"
     rows = [ln.strip(" []").split() for ln in lines[3:5]]
     assert [len(r) for r in rows] == [4, 4]
 
