@@ -10,7 +10,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      the main paths' shapes and ragged ones (the l1 pairwise forward also at
      eval's 512 x 14,951 x 400; flash attention at Qwen1.5-0.5B's prefill in
      bf16 and f32, H2O-Danube-1.8B's GQA and window, a ragged and a
-     decode-like shape; the SSD scan at Mamba2-2.7B's prefill, a long
+     decode-like shape in f32 and in bf16, with SDPA's own error beside
+     the kernel's; the SSD scan at Mamba2-2.7B's prefill, a long
      sequence, a ragged T and T = 1, also against the step-by-step
      ``ssd_ref``), with its time, the plain version's time, one PyTorch
      library call's time as a yardstick where one computes the same
@@ -98,6 +99,8 @@ FLASH_SHAPES = {
     "danube_gqa_swa_bf16": (1, 32, 8, 8192, 8192, 80, 4096, 0, "bfloat16"),
     "ragged_f32": (2, 4, 2, 100, 100, 64, 0, 0, "float32"),
     "decode_like_f32": (1, 4, 2, 1, 512, 64, 0, 511, "float32"),
+    "ragged_bf16": (2, 4, 2, 100, 100, 64, 0, 0, "bfloat16"),
+    "decode_like_bf16": (1, 4, 2, 1, 512, 64, 0, 511, "bfloat16"),
 }
 QWEN = "qwen1.5-0.5b"
 PREFILL_SHAPE = (4, 2048)
@@ -514,10 +517,16 @@ def check_flash(torch, dev, gen):
                 q, k, v, attn_mask=lib_mask, is_causal=lib_mask is None,
                 enable_gqa=True)
 
-        lib_err = float((library().float() - want).abs().max())
+        # the largest share of the gate each uses; SDPA, which rounds p to
+        # bf16, shows what the kernel's split of p buys
+        lib_diff = (library().float() - want).abs()
+        lib_err = float(lib_diff.max())
+        share = float((diff / allowed).max())
+        lib_share = float((lib_diff / allowed).max())
+        del lib_diff
         print(f"  flash_attention {name} {(B, H, Hkv, T, S, dh, win, qoff)}: "
-              f"max_abs_err {e:.3e} (largest allowed {t:.3e}); sdpa vs plain "
-              f"{lib_err:.3e}")
+              f"max_abs_err {e:.3e} (largest allowed {t:.3e}), largest share of the "
+              f"gate {share:.3f}; sdpa vs plain {lib_err:.3e}, share {lib_share:.3f}")
         check(out.shape == q.shape and out.dtype == dtype and math.isfinite(e) and ok,
               f"flash_attention {name} disagrees with mha_ref")
         err, tol = max(err, e), max(tol, t)
@@ -529,7 +538,8 @@ def check_flash(torch, dev, gen):
         b_ms, b_by = bound(n_bytes, 4 * dh * pairs,
                            BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S)
         timed[name] = dict(shape=f"{B}x{H}x{Hkv}x{T}x{S}x{dh} w{win} off{qoff} {dt}",
-                           bound_ms=b_ms, bound_by=b_by, pairs=pairs, sdpa_err=lib_err,
+                           bound_ms=b_ms, bound_by=b_by, pairs=pairs, err=e,
+                           gate_share=share, sdpa_err=lib_err, sdpa_gate_share=lib_share,
                            **tm)
         print(f"    {_fmt(timed[name])}")
     main = next(iter(FLASH_SHAPES))

@@ -220,12 +220,35 @@ FLASH_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
-def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
-    B, H, Hkv, T, S, dh, win, qoff, causal = case
+# The bf16 tensor-core kernel's edges, (..., causal, scale): T and S one
+# below, at and above its 64-row and 64-key tiles (63, 64, 65, 127, 129);
+# every head dim; GQA groups 1, 4 and 8; windows whose edge crosses a key
+# tile; q_offset past every key (the output is 0) and past some; inputs
+# scaled by 8, so that later keys raise the running max and rescale
+FLASH_EDGE_CASES = [
+    (1, 4, 4, 63, 63, 64, 0, 0, True, 1),
+    (1, 4, 4, 64, 64, 64, 0, 0, True, 1),
+    (1, 4, 4, 65, 65, 64, 0, 0, True, 1),
+    (1, 4, 4, 127, 127, 64, 0, 0, True, 1),
+    (1, 4, 4, 129, 129, 64, 0, 0, True, 1),
+    (1, 4, 1, 63, 129, 64, 0, 0, False, 1),
+    (1, 8, 1, 129, 65, 64, 0, 0, False, 1),
+    (2, 4, 1, 129, 129, 32, 0, 0, True, 1),
+    (1, 4, 1, 65, 127, 80, 0, 0, False, 1),
+    (1, 8, 1, 127, 127, 80, 0, 0, True, 1),
+    (1, 2, 2, 127, 129, 128, 0, 2, True, 1),
+    (1, 4, 2, 200, 200, 64, 70, 0, True, 1),
+    (1, 8, 2, 129, 193, 80, 100, 64, True, 1),
+    (1, 4, 2, 65, 64, 64, 16, 200, True, 1),
+    (1, 4, 2, 129, 64, 32, 8, 60, True, 1),
+    (2, 4, 2, 129, 129, 64, 0, 0, True, 8),
+    (1, 4, 1, 127, 129, 128, 0, 0, False, 8),
+]
+
+
+def _check_flash(cuda, B, H, Hkv, T, S, dh, win, qoff, causal, dtype, scale=1):
     rng = _rng(11)
-    q, k, v = (torch.tensor(rng.standard_normal(s), dtype=dtype, device=cuda)
+    q, k, v = (torch.tensor(scale * rng.standard_normal(s), dtype=dtype, device=cuda)
                for s in ((B, H, T, dh), (B, Hkv, S, dh), (B, Hkv, S, dh)))
     before = build.LAUNCHES["flash_attention"]
     out = flash_attention(q, k, v, causal=causal, window=win, q_offset=qoff)
@@ -243,6 +266,30 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     assert bool(torch.isfinite(got).all())
     if qoff >= S + win and win:  # no row sees a key
         assert bool((got == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    _check_flash(cuda, *case, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_kernel_edges(cuda, case, dtype):
+    *shape, scale = case
+    _check_flash(cuda, *shape, dtype, scale=scale)
+
+
+def test_flash_attention_takes_a_view_off_16_bytes(cuda):
+    """A contiguous bf16 view that starts 2 bytes into its storage is copied
+    to an aligned one before the launch."""
+    base = torch.randn(1 + 2 * 4 * 70 * 64, device=cuda).to(torch.bfloat16)
+    q = base[1:].view(2, 4, 70, 64)
+    out = flash_attention(q, q, q)
+    ref = mha_ref(q, q, q)
+    tol = 2e-5 * max(1.0, float(ref.float().abs().max())) + 2.0 ** -7 * ref.float().abs()
+    assert bool(((out.float() - ref.float()).abs() <= tol).all())
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
