@@ -19,8 +19,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      (bound);
   4. agreement: three dim-400 training steps at batch 256 and k 64 on a
      small synthetic graph, on the card (kernels) and on the CPU (plain
-     versions), from the same tables and batches, for TransE_l2 and
-     TransE_l1; and (1, 256) prefills of Qwen1.5-0.5B (flash) and
+     versions), from the same tables and batches, for TransE_l2, TransE_l1,
+     DistMult and RESCAL (whose relation rows, which its score never reads,
+     must come out unchanged; at lr 0.05, because at FB15k's 0.25 two CPU
+     runs that differ only in the rounding of the dedup sums already part
+     in more entries than the rule allows, which the phase checks and
+     prints beside the card's share with the kernels and with the plain
+     pairwise product); and (1, 256) prefills of Qwen1.5-0.5B (flash) and
      Mamba2-2.7B (ssd_scan) at full width cut to 2 layers, in f32, on the
      card and on the CPU from the same weights (logits within 2e-3);
   5. TransE_l2 path: ``python -m repro_torch.launch.train --dataset fb15k
@@ -35,22 +40,26 @@ Phases, each fatal on failure (exit code 1, no result line):
      path's except where near-ties explain the difference, the checkpoint of
      step 200 holds the final state and restores on the card bit for bit,
      and ``--resume --steps 210`` goes on from step 200.
-  7. Qwen prefill: Qwen1.5-0.5B at full width in its config dtype,
+  7. DistMult path: the same as phase 5 with ``--model distmult``: the
+     pairwise dot forward (its backward is plain matmuls), dedup and update;
+     the loss must fall and each of the three kernels launch at least twice
+     a step;
+  8. Qwen prefill: Qwen1.5-0.5B at full width in its config dtype,
      ``build_prefill_step(model, use_flash=True)`` on (4, 2048) tokens
      from numpy seed 0: 24 flash launches a forward, finite logits, close to
      the chunked route from the same weights; the same in f32 within 2e-3;
      prefill tokens/s and the forward's device time by kernel
      (torch.profiler);
-  8. Qwen serve: ``python -m repro_torch.launch.serve --full --batch 4
+  9. Qwen serve: ``python -m repro_torch.launch.serve --full --batch 4
      --prompt-len 32 --gen 16`` in process: (4, 16) tokens, finite logits,
      its tok/s line, no flash launch; its teacher-forced logits at the 32
      prompt positions against the flash prefill's from the same weights
      (and in f32 within 2e-3); decode tokens/s with the card synchronised.
-  9. Mamba2 prefill: Mamba2-2.7B at full width in its config dtype,
+ 10. Mamba2 prefill: Mamba2-2.7B at full width in its config dtype,
      ``build_prefill_step(model)`` on (4, 2048) tokens from numpy seed 0: 64
      ssd_scan launches a forward and no flash launch, finite logits,
      prefill tokens/s and the forward's device time by kernel;
- 10. Mamba2 serve: ``python -m repro_torch.launch.serve --arch mamba2-2.7b
+ 11. Mamba2 serve: ``python -m repro_torch.launch.serve --arch mamba2-2.7b
      --full --batch 4 --prompt-len 32 --gen 16`` in process: finite logits,
      its tok/s line, no kernel launch; in f32 from the same weights, its
      teacher-forced logits at the 32 prompt positions within 2e-3 x max(1,
@@ -79,8 +88,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+# H100 SXM, dense TF32 tensor cores (494.7 TFLOP/s), a product taken as three
+# TF32 products (3xTF32, the dot and l2sq kernels' fp32-accurate route)
+TF32X3_OPS_PER_S = 494.7e12 / 3
 BF16_OPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 TOL_REL = 2e-5  # kernel vs plain: fp32 sums taken in another order
+AGREEMENT_STEPS = 3  # phase 4
 MAIN_PATH_STEPS = 200
 RESUME_STEPS = 210
 # (G, B, K, D): the training path's pairwise call, a ragged one, eval's
@@ -225,9 +238,13 @@ def _fmt(r) -> str:
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
 
 
-def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S,
+          more=()):
+    """(least ms, what bounds it): the bytes over the memory rate against the
+    operations over their units' rate; ``more`` holds (ops, rate) pairs of
+    work on other units, which may run at the same time."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
+    t_ops = max([n_ops / ops_per_s * 1e3] + [o / r * 1e3 for o, r in more])
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -266,10 +283,13 @@ def check_pairwise(torch, dev, gen):
                      lambda: pairwise_ref(mode, o, n), lambda: library[mode](o, n),
                      plain_reps=plain_reps)
         n_bytes = 4 * G * (B * D + K * D + B * K)
-        n_ops = {"dot": 2 * B * K * D,
-                 "l2sq": 2 * B * K * D + 2 * (B + K) * D + 3 * B * K,
-                 "l1": 3 * B * K * D}[mode] * G
-        b_ms, b_by = bound(n_bytes, n_ops)
+        if mode == "l1":  # fp32 units: |o - n| and the sum
+            b_ms, b_by = bound(n_bytes, 3 * G * B * K * D)
+        else:  # the product on the tensor cores (3xTF32); l2sq's norms and
+            # epilogue on the fp32 units
+            norms = [(G * (2 * (B + K) * D + 3 * B * K), FP32_OPS_PER_S)]
+            b_ms, b_by = bound(n_bytes, 2 * G * B * K * D, TF32X3_OPS_PER_S,
+                               more=norms if mode == "l2sq" else ())
         return dict(bound_ms=b_ms, bound_by=b_by, shape=f"{G}x{B}x{K}x{D}", **tm)
 
     for mode in ("dot", "l2sq", "l1"):
@@ -394,8 +414,11 @@ def check_dedup(torch, np, dev, gen, kg):
         ids = ids.to(dev)
         g = torch.randn(n, D, generator=gen).to(dev)
         uid, agg = dedup_aggregate(ids, g)
+        uid2, agg2 = dedup_aggregate(ids, g)
         ru, ra = dedup_aggregate_ref(ids, g)
         torch.cuda.synchronize()
+        check(torch.equal(uid, uid2) and torch.equal(agg, agg2),
+              f"dedup_aggregate {case}: two calls differ")
         e = float((agg - ra).abs().max())
         t = TOL_REL * max(1.0, float(ra.abs().max()))
         n_first = int((ru >= 0).sum())
@@ -615,7 +638,11 @@ def check_ssd(torch, dev, gen):
 # ---------------------------------------------------------------------------
 # phase 4: a few dim-400 steps on a small graph, card vs CPU
 # ---------------------------------------------------------------------------
-def check_agreement(torch, np, dev, model):
+def agreement_run(torch, np, model, lr, devices):
+    """Phase 4's run: three dim-400 steps of ``model`` at batch 256 and k 64
+    on a small synthetic graph, from one seeded state and one batch stream
+    on each of ``devices``. Returns (cfg, initial arrays, {device: (losses,
+    final arrays)})."""
     import dataclasses
 
     from repro_torch.core import kge_model as K
@@ -625,30 +652,87 @@ def check_agreement(torch, np, dev, model):
     kg = fb15k_like(scale=0.05, seed=1)
     cfg = dataclasses.replace(fb15k_config(kg, model), batch_size=256,
                               neg_sample_size=64)
-    steps = 3
+    if lr is not None:
+        cfg = dataclasses.replace(cfg, lr=lr)
     states = {d: K.init_state(cfg, torch.Generator().manual_seed(1), overlap=True,
-                              device=d) for d in (dev, "cpu")}
+                              device=d) for d in devices}
+    init = K.state_to_arrays(next(iter(states.values())))
     sampler = JointSampler(kg.train, cfg.n_entities, cfg, np.random.default_rng(1))
-    losses = {dev: [], "cpu": []}
-    for _ in range(steps):
+    losses = {d: [] for d in devices}
+    for _ in range(AGREEMENT_STEPS):
         batch = sampler.sample()
         for d in states:
             states[d], m = K.train_step(cfg, states[d], K.batch_to_device(batch, d))
             losses[d].append(float(m["loss"]))
+    out = {}
     for d in states:
         K.flush_state(cfg, states[d])
-    got, want = K.state_to_arrays(states[dev]), K.state_to_arrays(states["cpu"])
-    print(f"  {model}: losses card {losses[dev]} cpu {losses['cpu']}")
-    check(np.allclose(losses[dev], losses["cpu"], rtol=1e-5, atol=1e-5),
+        out[d] = (losses[d], K.state_to_arrays(states[d]))
+    return cfg, init, out
+
+
+def share_off(np, got, want):
+    """{table: (max |got - want|, share of entries off rtol = atol = 1e-5)}"""
+    out = {}
+    for name in ("entity", "ent_gsq", "r_emb", "rel_gsq", "r_proj", "proj_gsq"):
+        if want[name] is not None:
+            diff = np.abs(got[name] - want[name])
+            out[name] = (float(diff.max()),
+                         float((diff > 1e-5 + 1e-5 * np.abs(want[name])).mean()))
+    return out
+
+
+def check_agreement(torch, np, dev, model, lr=None):
+    cfg, init, runs = agreement_run(torch, np, model, lr, (dev, "cpu"))
+    (l_dev, got), (l_cpu, want) = runs[dev], runs["cpu"]
+    print(f"  {model}: losses card {l_dev} cpu {l_cpu}")
+    check(np.allclose(l_dev, l_cpu, rtol=1e-5, atol=1e-5),
           f"{model}: card and CPU losses disagree")
     # Adagrad's first step is ~+-lr for any nonzero grad: an entry whose grad
     # is near zero may flip; allow 0.1% of entries, by at most 2 lr steps
-    for name in ("entity", "ent_gsq", "r_emb", "rel_gsq"):
-        diff = np.abs(got[name] - want[name])
-        off = float((diff > 1e-5 + 1e-5 * np.abs(want[name])).mean())
-        print(f"  {model} {name}: max diff {diff.max():.3e}, share off {off:.2e}")
-        check(off <= 1e-3 and diff.max() <= 2 * cfg.lr * steps,
+    if model == "rescal":  # the score reads only the projection rows
+        same = all(np.array_equal(a[k], init[k]) for a in (got, want)
+                   for k in ("r_emb", "rel_gsq"))
+        print(f"  rescal relation rows and accumulator unchanged on both: {same}")
+        check(same, "rescal: relation rows moved though the score never reads them")
+    for name, (most, off) in share_off(np, got, want).items():
+        print(f"  {model} {name}: max diff {most:.3e}, share off {off:.2e}")
+        check(off <= 1e-3 and most <= 2 * cfg.lr * AGREEMENT_STEPS,
               f"{model}: card and CPU {name} disagree")
+
+
+def sum_order_witness(torch, np, dev, model):
+    """What phase 4's rule reads at FB15k's lr when only the rounding of some
+    sums differs. Against the CPU run: the card (kernels); the card with the
+    pairwise kernel's plain version (cuBLAS fp32 in place of 3xTF32); the
+    CPU with every dedup sum taken in float64 and rounded once. Returns the
+    largest share off of the last, which no kernel touches."""
+    from unittest import mock
+
+    from repro_torch.kernels.kge_score import ops as score_ops
+    from repro_torch.kernels.kge_score.ref import pairwise_ref
+    from repro_torch.kernels.sparse_adagrad import ops as adagrad_ops
+    from repro_torch.kernels.sparse_adagrad.ref import dedup_aggregate_ref
+
+    def dedup_f64(ids, grads):
+        uid, _ = dedup_aggregate_ref(ids, grads)
+        match = (ids[:, None] == ids[None, :]) & (uid >= 0)[:, None]
+        return uid, (match.double() @ grads.double()).float()
+
+    _, _, runs = agreement_run(torch, np, model, None, (dev, "cpu"))
+    want = runs["cpu"][1]
+    with mock.patch.object(score_ops, "pairwise_kernel",
+                           lambda mode, o, n: pairwise_ref(mode, o, n)):
+        plain_dot = agreement_run(torch, np, model, None, (dev,))[2][dev][1]
+    with mock.patch.object(adagrad_ops, "dedup_aggregate_ref", dedup_f64):
+        f64 = agreement_run(torch, np, model, None, ("cpu",))[2]["cpu"][1]
+    shares = {what: share_off(np, got, want) for what, got in
+              (("card", runs[dev][1]), ("card, plain pairwise", plain_dot),
+               ("cpu, float64 dedup sums", f64))}
+    for what, by_table in shares.items():
+        print(f"  {model} at lr 0.25, {what} vs cpu: share off " + ", ".join(
+            f"{name} {off:.2e}" for name, (_, off) in by_table.items()))
+    return max(off for _, off in shares["cpu, float64 dedup sums"].values())
 
 
 def logits_agree(torch, got, want, rtol, atol):
@@ -701,7 +785,7 @@ def check_lm_agreement(torch, np, dev, arch, counter, use_flash):
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6: the training paths
+# phases 5-7: the training paths
 # ---------------------------------------------------------------------------
 class _Tee:
     """Standard output that is also kept, to read the run's eval lines."""
@@ -924,10 +1008,10 @@ def run_l1_path(torch, np, dev, kg):
 
 
 # ---------------------------------------------------------------------------
-# phases 7 and 8: LM serving of Qwen1.5-0.5B at full width
+# phases 8 and 9: LM serving of Qwen1.5-0.5B at full width
 # ---------------------------------------------------------------------------
 def run_qwen_prefill(torch, np, dev):
-    """Phase 7. Returns (launches, summary, the models and weights phase 8
+    """Phase 8. Returns (launches, summary, the models and weights phase 9
     reuses)."""
     import dataclasses
 
@@ -1039,7 +1123,7 @@ def run_qwen_prefill(torch, np, dev):
 
 
 def run_serve(torch, np, dev, serve_args, counter, reuse, scaled_f32):
-    """Phases 8 and 10: the serve CLI in process (it draws its weights from
+    """Phases 9 and 11: the serve CLI in process (it draws its weights from
     seed 0, as the prefill phase before it does); its decode launches no
     kernel. Then, in f32 from the same weights, its teacher-forced decode
     against the prefill of the same prompt through the ``counter`` kernel:
@@ -1125,10 +1209,10 @@ def run_serve(torch, np, dev, serve_args, counter, reuse, scaled_f32):
 
 
 # ---------------------------------------------------------------------------
-# phases 9 and 10: LM serving of Mamba2-2.7B at full width
+# phases 10 and 11: LM serving of Mamba2-2.7B at full width
 # ---------------------------------------------------------------------------
 def run_mamba_prefill(torch, np, dev):
-    """Phase 9. Returns (launches, summary, the models and weights phase 10
+    """Phase 10. Returns (launches, summary, the models and weights phase 11
     reuses)."""
     import dataclasses
 
@@ -1243,11 +1327,21 @@ def main() -> int:
     for r in rows:
         print(f"  {r['name']:16s} {r['shape']:>18s}: {_fmt(r)}  err "
               f"{r['max_abs_err']:.2e} <= {r['tol']:.2e}")
+        for name, o in r.get("other_shapes", {}).items():
+            print(f"  {'':16s} {name:>18s}: {_fmt(o)}")
 
     print("== 4. card vs CPU: three dim-400 steps at batch 256, k 64; 2-layer "
           "Qwen and Mamba2 prefills")
-    for model in ("transe_l2", "transe_l1"):
+    for model in ("transe_l2", "transe_l1", "distmult"):
         check_agreement(torch, np, dev, model)
+    # RESCAL diverges at FB15k's lr 0.25 (loss 1.39 -> 18.1 in three steps)
+    # and carries any change in the rounding of a sum into more entries than
+    # the rule allows, between two CPU runs too; at 0.05 its loss falls
+    check_agreement(torch, np, dev, "rescal", lr=0.05)
+    for model in ("transe_l2", "distmult", "rescal"):
+        floor = sum_order_witness(torch, np, dev, model)
+    check(floor > 1e-3, "rescal at lr 0.25: two CPU runs agree within phase 4's "
+          f"rule ({floor:.2e} off), so it should run there at FB15k's lr")
     check_lm_agreement(torch, np, dev, QWEN, "flash_attention", use_flash=True)
     check_lm_agreement(torch, np, dev, MAMBA, "ssd_scan", use_flash=False)
 
@@ -1260,19 +1354,24 @@ def main() -> int:
           f"checkpoint, resume to {RESUME_STEPS}")
     l1_launches, l1_path = run_l1_path(torch, np, dev, kg)
 
-    print(f"== 7. Qwen prefill: {QWEN} at full width, {PREFILL_SHAPE} tokens, flash")
+    print(f"== 7. DistMult path: FB15k, {MAIN_PATH_STEPS} steps")
+    dm_launches, dm_path, *_ = run_path(torch, np, "distmult", [], 20)
+    check_launched(dm_launches, ("pairwise_dot", "dedup_aggregate", "fused_update"),
+                   MAIN_PATH_STEPS)
+
+    print(f"== 8. Qwen prefill: {QWEN} at full width, {PREFILL_SHAPE} tokens, flash")
     pre_launches, pre_path, reuse = run_qwen_prefill(torch, np, dev)
 
-    print(f"== 8. Qwen serve: python -m repro_torch.launch.serve {' '.join(SERVE_ARGS)}")
+    print(f"== 9. Qwen serve: python -m repro_torch.launch.serve {' '.join(SERVE_ARGS)}")
     serve_launches, serve_path = run_serve(torch, np, dev, SERVE_ARGS, "flash_attention",
                                            reuse, scaled_f32=False)
     del reuse
     torch.cuda.empty_cache()
 
-    print(f"== 9. Mamba2 prefill: {MAMBA} at full width, {PREFILL_SHAPE} tokens, ssd_scan")
+    print(f"== 10. Mamba2 prefill: {MAMBA} at full width, {PREFILL_SHAPE} tokens, ssd_scan")
     m_pre_launches, m_pre_path, reuse = run_mamba_prefill(torch, np, dev)
 
-    print(f"== 10. Mamba2 serve: python -m repro_torch.launch.serve "
+    print(f"== 11. Mamba2 serve: python -m repro_torch.launch.serve "
           f"{' '.join(MAMBA_SERVE_ARGS)}")
     m_serve_launches, m_serve_path = run_serve(torch, np, dev, MAMBA_SERVE_ARGS,
                                                "ssd_scan", reuse, scaled_f32=True)
@@ -1282,6 +1381,7 @@ def main() -> int:
     for r in rows:
         by_path = {"transe_l2": l2_launches[r["name"]],
                    "transe_l1": l1_launches[r["name"]],
+                   "distmult": dm_launches[r["name"]],
                    "qwen_prefill": pre_launches[r["name"]],
                    "qwen_serve": serve_launches[r["name"]],
                    "mamba2_prefill": m_pre_launches[r["name"]],
@@ -1296,7 +1396,7 @@ def main() -> int:
             **{k: r[k] for k in ("ref_err", "ref_tol", "library", "other_shapes")
                if k in r}))
     print(json.dumps({"paths": {"transe_l2": l2_path, "transe_l1": l1_path,
-                                "qwen_prefill": pre_path, "qwen_serve": serve_path,
+                                "distmult": dm_path, "qwen_prefill": pre_path, "qwen_serve": serve_path,
                                 "mamba2_prefill": m_pre_path,
                                 "mamba2_serve": m_serve_path}}))
     print(nvidia_smi_line())

@@ -115,7 +115,9 @@ def store_grads(
                       neg.reshape(MODES * b, -1), margin=cfg.gamma)
 
     leaves = [ws, rel_ws] + ([proj_ws] if has_proj else [])
-    grads = torch.autograd.grad(loss, leaves)
+    # a leaf the score never reads (RESCAL's rel_ws: it reads only the
+    # projection rows) gets a zero gradient, as JAX's value_and_grad gives
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     out = {"entity": grads[0], "rel": grads[1]}
     if has_proj:
         out["proj"] = grads[2]

@@ -105,6 +105,27 @@ def test_latest_step_prune_and_checks(tmp_path):
         TC.restore_checkpoint(str(tmp_path / "none"), ts)
 
 
+def test_leftover_tmp_is_no_step(tmp_path):
+    """A ``step_<n>.tmp`` left by a save that died before its rename is no
+    checkpoint: ``latest_step`` and pruning pass it by. Here the port differs
+    on purpose from the JAX package, whose ``latest_step`` takes every
+    ``step_`` entry and raises on ``int('<n>.tmp')`` when the leftover is the
+    newest."""
+    ts = _port_state("transe_l1", False)
+    for s in (2, 4):
+        TC.save_checkpoint(str(tmp_path), s, ts, keep=2)
+    (tmp_path / "step_0000000007.tmp").mkdir()
+    assert TC.latest_step(str(tmp_path)) == 4
+    with pytest.raises(ValueError):
+        JC.latest_step(str(tmp_path))
+    TC.save_checkpoint(str(tmp_path), 6, ts, keep=2)
+    assert sorted(os.listdir(tmp_path)) == ["step_0000000004", "step_0000000006",
+                                            "step_0000000007.tmp"]
+    assert TC.latest_step(str(tmp_path)) == 6
+    back = TC.restore_checkpoint(str(tmp_path), ts)
+    torch.testing.assert_close(back.entity, ts.entity, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("overlap", [True, False], ids=["t5", "no_t5"])
 def test_resume_equals_straight_run(tmp_path, overlap):
     """A run that saves (flushed) at step 3 and goes on to 6, and a restore

@@ -166,6 +166,132 @@ def test_dedup_kernel_heavy_duplicates(cuda, D):
     torch.testing.assert_close(agg, ra, rtol=1e-5, atol=1e-4)
 
 
+def _group(rng, n, size, other=None):
+    """n slots, `size` of them (at random places) holding one id, the rest
+    `other` or unique ids."""
+    ids = rng.permutation(n) + 1000 if other is None else other.copy()
+    ids[rng.permutation(n)[:size]] = 7
+    return ids
+
+
+def _dedup_cases():
+    """(name, ids) for the kernel's routes and edges: groups on each side of
+    the sizes where the slice shape changes (4, 12, 36, 72) and of the 144
+    slots a warp lists, and far past it; one id everywhere, ids near
+    2^31 - 1, ids equal in their low 12 bits, pads of any sign."""
+    rng = _rng(21)
+    near_max = 2**31 - 1 - rng.permutation(300)
+    return [
+        ("relation_skew_140", _group(rng, 1024, 140)),
+        ("zipf_2560", _group(rng, 2560, 50, rng.zipf(1.5, 2560) % 14951)),
+        ("group_12", _group(rng, 1024, 12)),
+        ("group_288", _group(rng, 1024, 288)),
+        ("group_289", _group(rng, 1024, 289)),
+        ("one_id_2560", np.full(2560, 3)),
+        ("all_unique", rng.permutation(14951)[:2560]),
+        ("all_pads", np.full(2560, -1)),
+        ("near_max", rng.permutation(np.concatenate([np.repeat(near_max, 3),
+                                                     np.full(124, 2**31 - 1)]))),
+        ("negative_pads", np.where(rng.random(777) < 0.5, -7, rng.integers(0, 50, 777))),
+        # one low-bit pattern: ids that collide in any hash by id mod 2^k,
+        # k <= 12 (a table of the workspace's size), some of them repeated
+        ("same_low_bits", 7 + 4096 * rng.integers(0, 2**18, 2560)[rng.integers(0, 1200, 2560)]),
+        ("group_4", _group(rng, 1024, 4)),
+        ("group_5", _group(rng, 1024, 5)),
+        ("group_13", _group(rng, 1024, 13)),
+        ("group_36", _group(rng, 1024, 36)),
+        ("group_37", _group(rng, 1024, 37)),
+        ("group_72", _group(rng, 1024, 72)),
+        ("group_73", _group(rng, 1024, 73)),
+        ("group_144", _group(rng, 2560, 144)),
+        ("group_145", _group(rng, 2560, 145)),
+    ]
+
+
+@pytest.mark.parametrize("D", [400, 500])
+@pytest.mark.parametrize("case", _dedup_cases(), ids=lambda c: c[0])
+def test_dedup_kernel_edges_and_determinism(cuda, case, D):
+    """Skewed, degenerate and extreme ids, at the path's D and at one past
+    the 416 columns of the widest slice; two calls give the same bits."""
+    name, ids = case
+    n = len(ids)
+    rng = _rng(22)
+    ids = torch.tensor(ids.astype(np.int32), device=cuda)
+    g = torch.tensor(rng.standard_normal((n, D)), dtype=torch.float32, device=cuda)
+    before = build.LAUNCHES["dedup_aggregate"]
+    uid, agg = dedup_aggregate(ids, g)
+    uid2, agg2 = dedup_aggregate(ids, g)
+    ru, ra = dedup_aggregate_ref(ids, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dedup_aggregate"] == before + 2
+    assert torch.equal(uid, ru)
+    assert torch.equal(uid, uid2) and torch.equal(agg, agg2)
+    # fp32 sums of the same rows in another order: 2e-5 of the largest value
+    tol = 2e-5 * max(1.0, float(ra.abs().max()))
+    assert float((agg - ra).abs().max()) <= tol
+
+
+def test_dedup_kernel_past_the_warp_route(cuda):
+    """A workspace past the ids one block stages (the naive sampler's) goes
+    through the scan route, with the same layout."""
+    rng = _rng(23)
+    n = 13000
+    ids = torch.tensor(_dups(rng, n, 14951), device=cuda)
+    g = torch.tensor(rng.standard_normal((n, 16)), dtype=torch.float32, device=cuda)
+    uid, agg = dedup_aggregate(ids, g)
+    ru, ra = dedup_aggregate_ref(ids, g)
+    torch.cuda.synchronize()
+    assert torch.equal(uid, ru)
+    torch.testing.assert_close(agg, ra, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["dot", "l2sq"])
+@pytest.mark.parametrize("shape", [(1, 100, 70, 37), (2, 33, 65, 36), (4, 64, 96, 400),
+                                   (3, 31, 33, 12), (1, 1024, 256, 5)])
+def test_pairwise_mma_kernel_shapes(cuda, mode, shape):
+    """The tensor-core core at D not a multiple of 8 (4-byte copies when D is
+    not a multiple of 4), G > 1, and B and K off the 32 x 32 tile."""
+    G, B, K, D = shape
+    rng = _rng(24)
+    o = torch.tensor(rng.standard_normal((G, B, D)), dtype=torch.float32, device=cuda)
+    n = torch.tensor(rng.standard_normal((G, K, D)), dtype=torch.float32, device=cuda)
+    out = pairwise_kernel(mode, o, n)
+    ref = pairwise_ref(mode, o, n)
+    torch.cuda.synchronize()
+    tol = 2e-5 * max(1.0, float(ref.abs().max()))
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= tol
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest), as float64."""
+    b = x.astype(np.float32).view(np.int32).astype(np.int64)
+    return ((b + 0x1000) & ~0x1FFF).astype(np.int32).view(np.float32).astype(np.float64)
+
+
+@pytest.mark.parametrize("mode", ["dot", "l2sq"])
+def test_pairwise_mma_kernel_keeps_fp32_at_large_magnitude(cuda, mode):
+    """Operands of ~1e3: one TF32 product a pair would miss the 2e-5 gate
+    (shown here on the same inputs), so the kernel passes only with the lo
+    terms of its 3xTF32 split."""
+    rng = _rng(25)
+    o = 1e3 * rng.standard_normal((1, 256, 400))
+    n = 1e3 * rng.standard_normal((1, 128, 400))
+    to = torch.tensor(o, dtype=torch.float32, device=cuda)
+    tn = torch.tensor(n, dtype=torch.float32, device=cuda)
+    out = pairwise_kernel(mode, to, tn)
+    ref = pairwise_ref(mode, to, tn)
+    torch.cuda.synchronize()
+    want = ref.double().cpu().numpy()
+    tol = 2e-5 * max(1.0, float(np.abs(want).max()))
+    o32, n32 = o.astype(np.float32).astype(np.float64), n.astype(np.float32).astype(np.float64)
+    one = _tf32(o32) @ _tf32(n32).transpose(0, 2, 1)
+    if mode == "l2sq":
+        one = (o32 ** 2).sum(-1)[..., None] - 2 * one + (n32 ** 2).sum(-1)[:, None, :]
+    assert np.abs(one - want).max() > tol  # the gate sees a dropped lo term
+    assert float((out - ref).abs().max()) <= tol
+
+
 def test_fused_update_kernel_matches_plain(cuda):
     rng = _rng(9)
     N, D, n = 14951, 400, 2560

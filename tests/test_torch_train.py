@@ -69,7 +69,8 @@ def assert_tables_close(got, want, lr, steps, name):
 
 
 @pytest.mark.parametrize("overlap", [True, False], ids=["t5", "no_t5"])
-@pytest.mark.parametrize("model", ["transe_l2", "distmult", "complex", "transe_l1"])
+@pytest.mark.parametrize("model", ["transe_l2", "distmult", "complex", "transe_l1",
+                                   "rotate", "transr", "rescal"])
 def test_slice_matches_jax(kg, model, overlap):
     jc, tc = _cfgs(model)
     js = JK.init_state(jc, jax.random.key(0), overlap=overlap)
@@ -90,8 +91,10 @@ def test_slice_matches_jax(kg, model, overlap):
     got = TK.state_to_arrays(ts)
     want = _jax_arrays(js)
     assert got["step"] == want["step"] == STEPS
-    for name in ("entity", "ent_gsq", "r_emb", "rel_gsq"):
-        assert_tables_close(got[name], want[name], tc.lr, STEPS, name)
+    for name in ("entity", "ent_gsq", "r_emb", "rel_gsq", "r_proj", "proj_gsq"):
+        assert (got[name] is None) == (want[name] is None), name
+        if want[name] is not None:
+            assert_tables_close(got[name], want[name], tc.lr, STEPS, name)
     if overlap:
         np.testing.assert_array_equal(got["pend_ids"], want["pend_ids"])
 
@@ -160,6 +163,25 @@ def test_cli_runs_on_cpu_and_refuses_without_gpu():
         out = _run_cli(["--steps", "1", "--scale", "0.02"])
         assert out.returncode != 0
         assert "no CUDA device" in out.stderr
+
+
+def test_cli_trains_rescal_and_leaves_its_relation_rows():
+    """RESCAL's score reads only the projection rows, so the relation rows
+    get a zero gradient (as from JAX's value_and_grad): the step takes it,
+    and Adagrad leaves the relation table and its accumulator as they were."""
+    from repro_torch.launch import train
+
+    hook = engine.MetricsHook(("loss",))
+    cfg, st = train.main(["--device", "cpu", "--model", "rescal", "--steps", "3",
+                          "--scale", "0.02", "--dim", "16", "--batch-size", "32",
+                          "--neg", "8", "--log-every", "3"], hooks=[hook])
+    fresh = TK.init_state(cfg, torch.Generator().manual_seed(0), overlap=True,
+                          device="cpu")
+    TK.flush_state(cfg, st)
+    assert st.step == 3 and all(np.isfinite(hook.history["loss"]))
+    assert torch.equal(st.r_emb, fresh.r_emb) and torch.equal(st.rel_gsq, fresh.rel_gsq)
+    assert not torch.equal(st.r_proj, fresh.r_proj)
+    assert not torch.equal(st.entity, fresh.entity)
 
 
 def test_cli_refuses_unported_modes():
