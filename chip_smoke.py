@@ -89,7 +89,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 # H100 SXM, dense TF32 tensor cores (494.7 TFLOP/s), a product taken as three
-# TF32 products (3xTF32, the dot and l2sq kernels' fp32-accurate route)
+# TF32 products (3xTF32: the fp32-accurate route of the dot and l2sq
+# products, the f32 flash-attention kernel and the SSD scan)
 TF32X3_OPS_PER_S = 494.7e12 / 3
 BF16_OPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 TOL_REL = 2e-5  # kernel vs plain: fp32 sums taken in another order
@@ -130,7 +131,7 @@ SSD_SHAPES = {
     "ragged_100": (1, 100, 4, 32, 16),
     "t1": (4, 1, 80, 64, 128),
 }
-SSD_CHUNK = 64  # the kernel's chunk rows
+SSD_CHUNK = 64  # the rows of a chunk in ssd_ops' count (the kernel's are 64 too)
 SSD_REF_TOL = 1e-4  # against ssd_ref: JAX's bound (tests/test_kernels.py:94-99)
 
 TPU_KERNEL = {
@@ -233,9 +234,11 @@ def timings(torch, kernel, plain, library, reps=50, plain_reps=20):
 
 def _fmt(r) -> str:
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+    fp32 = (f"; {r['fp32_bound_ms'] * 1e3:.2f} us at fp32's rate"
+            if "fp32_bound_ms" in r else "")
     return (f"ms {r['ms']:.5f}  plain_ms {r['plain_ms']:.5f}  library_ms "
             f"{lib}  event_ms {r['event_ms']:.5f}  bound "
-            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}{fp32})")
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S,
@@ -558,10 +561,14 @@ def check_flash(torch, dev, gen):
                      lambda: mha_ref(q, k, v, causal=True, window=win, q_offset=qoff),
                      library, reps=10 if big else 50, plain_reps=3 if big else 20)
         n_bytes = q.element_size() * 2 * (q.numel() + k.numel())  # q, k, v, o
-        b_ms, b_by = bound(n_bytes, 4 * dh * pairs,
-                           BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S)
+        n_ops = 4 * dh * pairs
+        # f32 runs as 3xTF32 on the tensor cores; its bound at fp32's rate
+        # outside them is kept beside it
+        f32 = dtype == torch.float32
+        b_ms, b_by = bound(n_bytes, n_ops, TF32X3_OPS_PER_S if f32 else BF16_OPS_PER_S)
+        more = dict(fp32_bound_ms=bound(n_bytes, n_ops)[0]) if f32 else {}
         timed[name] = dict(shape=f"{B}x{H}x{Hkv}x{T}x{S}x{dh} w{win} off{qoff} {dt}",
-                           bound_ms=b_ms, bound_by=b_by, pairs=pairs, err=e,
+                           bound_ms=b_ms, bound_by=b_by, **more, pairs=pairs, err=e,
                            gate_share=share, sdpa_err=lib_err, sdpa_gate_share=lib_share,
                            **tm)
         print(f"    {_fmt(timed[name])}")
@@ -622,9 +629,10 @@ def check_ssd(torch, dev, gen):
                      lambda: ssd_chunked_batched(x, dt, A, Bm, Cm), None,
                      reps=10 if big else 50, plain_reps=3 if big else 20)
         n_bytes = 4 * (2 * x.numel() + dt.numel() + 2 * Bm.numel() + H)
-        b_ms, b_by = bound(n_bytes, ssd_ops(B, T, H, P, N))
+        n_ops = ssd_ops(B, T, H, P, N)
+        b_ms, b_by = bound(n_bytes, n_ops, TF32X3_OPS_PER_S)  # 3xTF32 products
         timed[name] = dict(shape=f"{B}x{T}x{H}x{P}x{N}", bound_ms=b_ms, bound_by=b_by,
-                           **tm)
+                           fp32_bound_ms=bound(n_bytes, n_ops)[0], **tm)
         print(f"    {_fmt(timed[name])}")
     main = next(iter(SSD_SHAPES))
     return [dict(name="ssd_scan", source="src/repro_torch/csrc/ssd_scan.cu",
@@ -1393,8 +1401,8 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], event_ms=r["event_ms"],
             shape=r["shape"],
-            **{k: r[k] for k in ("ref_err", "ref_tol", "library", "other_shapes")
-               if k in r}))
+            **{k: r[k] for k in ("fp32_bound_ms", "ref_err", "ref_tol", "library",
+                                 "other_shapes") if k in r}))
     print(json.dumps({"paths": {"transe_l2": l2_path, "transe_l1": l1_path,
                                 "distmult": dm_path, "qwen_prefill": pre_path, "qwen_serve": serve_path,
                                 "mamba2_prefill": m_pre_path,

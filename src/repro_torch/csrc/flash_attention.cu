@@ -1,5 +1,5 @@
-// Forward attention with an online softmax (FlashAttention-style) on Hopper:
-// bf16 inputs on the tensor cores, f32 inputs on the FMA units.
+// Forward attention with an online softmax (FlashAttention-style) on Hopper's
+// tensor cores: bf16 inputs as bf16 products, f32 inputs as 3xTF32 products.
 //
 //   o[b, h, i] = sum_j p[i, j] v[b, hk, j] / max(sum_j p[i, j], 1e-30)
 //   p[i, j]    = valid(i, j) ? exp(s[i, j] - max_j s[i, j]) : 0
@@ -25,7 +25,9 @@
 // of dh multiply-adds) against reading q, k, v and writing o once. At the
 // Qwen1.5-0.5B prefill (B 4, H 16, T = S 2048, dh 64, causal) that is
 // 34.4 G operations against 67 MB in bf16: bound by operations, 0.035 ms at
-// 989 TFLOP/s (bf16 tensor cores); in f32, 0.51 ms at 67 TFLOP/s.
+// 989 TFLOP/s (bf16 tensor cores); in f32, 0.21 ms at 164.9 TFLOP/s (three
+// TF32 products a product, 494.7 / 3; 0.51 ms at fp32's 67 TFLOP/s outside
+// the tensor cores). Rates are the H100 SXM data sheet's.
 //
 // bf16: flash_kernel_tc, the FlashAttention-2 structure on mma.sync
 // m16n8k16 (bf16 operands, f32 accumulation) with ldmatrix.
@@ -71,22 +73,57 @@
 //    rows are not written.
 //  - Blocks of the last query tiles, which see the most keys under a causal
 //    mask, start first.
-//  At the Qwen shape this runs at ~5x its bound and ~1.8x SDPA. A wgmma
+//  At the Qwen shape, on an H100 80GB HBM3 at 700 W, this runs in ~175 us,
+//  ~5x its bound and ~1.8x SDPA. A wgmma
 //  version (a warpgroup a 64-row tile, k and v by TMA with mbarriers, the
 //  softmax and split of one tile overlapping the products of the next) is
 //  queued in ROADMAP.md.
 //
-// f32: flash_kernel, on the FMA units. TF32 keeps about 10 bits and would not
-// hold the f32 gate (2e-5 of the plain version); a 3xTF32 split would. 256
-// threads (16 x 16) a block and tiles of kBQ = kBKV = 64. The query tile is
-// staged once, transposed, in shared memory; each kv tile is staged (k
-// transposed, v as is) in turn. A thread owns a 4 x 4 block of the 64 x 64
-// score tile (rows ty*4.., keys tx*4..), read as two float4s of q and k a
-// step of the dot product, and a 4 x dh/16 block of the output accumulator
-// (rows ty*4.., columns tx*dh/16..). The 16 threads of a row group share
-// its running max and denominator, reduced with shuffles. The
-// probabilities go through shared memory, transposed, to the P @ V product.
-// exp is expf (no fast math), and p stays f32 in the P @ V product.
+// f32: flash_kernel_f32, the same structure on mma.sync m16n8k8 in TF32.
+// TF32 keeps 10 bits of the mantissa, far from the f32 gate (2e-5 of the
+// plain version), so every operand x is split into x_hi = tf32(x) and
+// x_lo = tf32(x - x_hi), and a.b is taken as a_lo.b_hi + a_hi.b_lo +
+// a_hi.b_hi into one f32 accumulator (3xTF32, as pairwise.cu's dot core);
+// the dropped a_lo.b_lo is 2^-22 of |a||b|, below f32's reordering noise.
+//  - 128 threads a block, four warps of 16 query rows. A warp splits its
+//    rows of q once and keeps the hi and lo A fragments in registers.
+//  - k and v come in tiles of 64 keys by cp.async into a two-stage ring.
+//    The q tile is staged in the second stage's k area, read once into
+//    registers, and then overwritten by the second kv tile: 75,776 bytes
+//    at dh 64. Up to dh 80 two blocks share an SM, one at dh 128: a thread
+//    takes all 255 registers at dh 64 (and spills 32 bytes); held to 168
+//    for three blocks an SM, it spilled 436 bytes and ran 13% slower.
+//  - Both products sum over the mma's k index, so it need not follow dh or
+//    the keys in order. In q kT, a lane's columns tq and tq + 4 of a pair of
+//    k-steps are dh 16 kp + 4 tq + {0, 1} and + {2, 3}: its q and k values
+//    are one 16-byte read. In p v, column tq of a k-step is key 2 tq and
+//    column tq + 4 key 2 tq + 1, which is where the score accumulator holds
+//    them, so p stays in registers as the A fragment (split hi + lo), with
+//    no shuffle. v's B fragments come 16 bytes at a time as well: column g
+//    of output tiles 4 r .. 4 r + 3 is dh 32 r + 4 g + u (8 bytes and two
+//    tiles at dh 80, which is not a multiple of 32), and the output is
+//    written back from that order in 16-byte (8-byte) stores.
+//  - Shared rows of q and k are padded to 16 mod 32 floats and rows of v
+//    to 4 mod 16, which puts every 16-byte fragment read on distinct banks.
+//  - Few roundings on the running sums, which decide the error where |s|
+//    is large (inputs of magnitude 8: a near-tie of two scores turns an
+//    error of a few ulp of s into one the gate sees, for the plain version
+//    as much as for this kernel). In q kT the products of the hi parts of
+//    each pair of k-steps are summed from 0 (two mma's) and added to s by an
+//    f32 add; the two small ones go into a sum of their own, added at the
+//    end of the tile. (Accumulated straight into s, one mma a k-step, the
+//    error against float64 was ~1.7x larger, and a magnitude-8 edge case
+//    missed the gate.) A tile's p v is summed in
+//    registers of its own and folded into the output by one f32 fma,
+//    o = alpha o + p v, not accumulated into it three times a k-step.
+//  - The softmax is the bf16 kernel's: f32, p = 2^(s c - m c) by
+//    ex2.approx, the mask only on edge tiles. ex2.approx is within 2 ulp of
+//    2^x; that moves the output by ~1e-7 of |v|, two orders under the
+//    gate, and less than the plain version's own rounding of s (f32 sums of
+//    dh products), so expf would buy nothing the gate can see.
+//  At the Qwen shape, on an H100 80GB HBM3 at 700 W, this runs in ~0.81 ms,
+//  ~3.9x its 3xTF32 bound and ~0.69x SDPA's f32 time (the FMA-unit kernel
+//  it replaces took ~1.4 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,229 +132,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-
-// ---------------------------------------------------------------------------
-// f32: the FMA kernel
-// ---------------------------------------------------------------------------
-constexpr int kBQ = 64;   // query rows a block
-constexpr int kBKV = 64;  // keys a tile
-constexpr int kSide = 16;
-constexpr int kThreads = kSide * kSide;
-constexpr int kPad = 4;  // keeps float4 alignment, spreads transposed rows
-
-// Rows [r0, r0 + 64) of a row-major (n, DH) matrix into shared memory,
-// transposed (dst[d * ld + r]) or not (dst[r * ld + d]); rows at or past n
-// are 0. Neighbouring threads read neighbouring elements.
-template <int DH, bool TRANS>
-__device__ __forceinline__ void stage(const float* __restrict__ src, int n, int r0,
-                                      float* __restrict__ dst, int ld) {
-  static_assert(kBQ == kBKV, "one staging shape");
-  for (int e = threadIdx.x; e < kBKV * DH; e += kThreads) {
-    const int r = e / DH;
-    const int d = e % DH;
-    const float x = (r0 + r < n) ? src[(size_t)(r0 + r) * DH + d] : 0.f;
-    if (TRANS) {
-      dst[d * ld + r] = x;
-    } else {
-      dst[r * ld + d] = x;
-    }
-  }
-}
-
-// CT neighbouring floats from shared memory, as float4, float2 or scalars.
-template <int CT>
-__device__ __forceinline__ void load_cols(const float* p, float (&out)[CT]) {
-  if constexpr (CT % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < CT; c += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(p + c);
-      out[c] = x.x;
-      out[c + 1] = x.y;
-      out[c + 2] = x.z;
-      out[c + 3] = x.w;
-    }
-  } else if constexpr (CT % 2 == 0) {
-#pragma unroll
-    for (int c = 0; c < CT; c += 2) {
-      const float2 x = *reinterpret_cast<const float2*>(p + c);
-      out[c] = x.x;
-      out[c + 1] = x.y;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < CT; ++c) out[c] = p[c];
-  }
-}
-
-// max and sum over the 16 threads of a row group (lanes 0-15 or 16-31)
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = kSide / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = kSide / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int DH>
-constexpr size_t smem_floats() {
-  // q^T, k^T, v, p^T
-  return (size_t)DH * (kBQ + kPad) + (size_t)DH * (kBKV + kPad) + (size_t)kBKV * DH +
-         (size_t)kBKV * (kBQ + kPad);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int H, int Hkv, int n_q,
-             int n_k, int causal, int window, int q_offset, float scale) {
-  static_assert(DH % kSide == 0, "dh a multiple of 16");
-  constexpr int CT = DH / kSide;  // output columns a thread
-  constexpr int ldq = kBQ + kPad;
-  constexpr int ldk = kBKV + kPad;
-  constexpr int ldv = DH;
-  constexpr int ldp = kBQ + kPad;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;              // [DH][ldq]
-  float* kt = qt + DH * ldq;     // [DH][ldk]
-  float* vs = kt + DH * ldk;     // [kBKV][ldv]
-  float* pt = vs + kBKV * ldv;   // [kBKV][ldp]
-
-  const int bh = blockIdx.x;  // b * H + h
-  const int qb = gridDim.y - 1 - blockIdx.y;
-  const int b = bh / H;
-  const int hk = (bh % H) / (H / Hkv);
-  const size_t kv_off = ((size_t)b * Hkv + hk) * n_k * DH;
-  q += (size_t)bh * n_q * DH;
-  o += (size_t)bh * n_q * DH;
-  k += kv_off;
-  v += kv_off;
-
-  const int i0 = qb * kBQ;
-  const int ty = threadIdx.x / kSide;
-  const int tx = threadIdx.x % kSide;
-
-  // the keys any real row of this block may see: tiles [t0, t1)
-  const int q_lo = i0 + q_offset;
-  const int q_hi = min(i0 + kBQ, n_q) - 1 + q_offset;
-  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
-  const int k_end = causal ? min(n_k, q_hi + 1) : n_k;
-  const int t0 = k_begin / kBKV;
-  const int t1 = k_end > k_begin ? (k_end + kBKV - 1) / kBKV : t0;
-
-  stage<DH, true>(q, n_q, i0, qt, ldq);
-
-  int qpos[4];
-  float m[4], l[4], acc[4][CT];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    qpos[r] = i0 + ty * 4 + r + q_offset;
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CT; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int t = t0; t < t1; ++t) {
-    const int j0 = t * kBKV;
-    __syncthreads();  // the previous tile's k, v and p are consumed
-    stage<DH, true>(k, n_k, j0, kt, ldk);
-    stage<DH, false>(v, n_k, j0, vs, ldv);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qt[d * ldq + ty * 4]);
-      const float4 bk = *reinterpret_cast<const float4*>(&kt[d * ldk + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bk.x, bk.y, bk.z, bk.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = j0 + tx * 4 + c;
-        ok[c] = j < n_k && (!causal || j <= qpos[r]) && (window <= 0 || j > qpos[r] - window);
-        s[r][c] = ok[c] ? s[r][c] * scale : kNegInf;
-        mx = fmaxf(mx, s[r][c]);
-      }
-      const float m_new = fmaxf(m[r], group_max(mx));
-      const float alpha = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = ok[c] ? expf(s[r][c] - m_new) : 0.f;  // now p
-        sum += s[r][c];
-      }
-      l[r] = l[r] * alpha + group_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < CT; ++c) acc[r][c] *= alpha;
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      *reinterpret_cast<float4*>(&pt[(tx * 4 + c) * ldp + ty * 4]) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBKV; ++j) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&pt[j * ldp + ty * 4]);
-      const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
-      float vv[CT];
-      load_cols<CT>(&vs[j * ldv + tx * CT], vv);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int c = 0; c < CT; ++c) acc[r][c] = fmaf(pr[r], vv[c], acc[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty * 4 + r;
-    if (i >= n_q) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < CT; ++c) o[(size_t)i * DH + tx * CT + c] = acc[r][c] / denom;
-  }
-}
-
-template <int DH>
-cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o, int B, int H,
-                       int Hkv, int n_q, int n_k, int causal, int window, int q_offset,
-                       float scale, cudaStream_t s) {
-  const size_t bytes = smem_floats<DH>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (n_q + kBQ - 1) / kBQ);
-  flash_kernel<DH><<<grid, kThreads, bytes, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, n_q, n_k, causal,
-      window, q_offset, scale);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernel
@@ -649,23 +463,336 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32: the 3xTF32 tensor-core kernel
+// ---------------------------------------------------------------------------
+constexpr int kKeysF = 64;  // keys a tile; query rows a block are kRowsTC
+static_assert(kKeysF == kRowsTC, "the q tile is staged in a k tile's place");
+
+// shared row lengths, floats: k and q at 16 mod 32, v at 4 mod 16
+template <int DH>
+__host__ __device__ constexpr int ld_k() {
+  return DH % 32 == 16 ? DH : DH + 16;
+}
+template <int DH>
+__host__ __device__ constexpr int ld_v() {
+  return DH + 4;
+}
+template <int DH>
+constexpr size_t smem_bytes_f32() {
+  return (size_t)2 * kKeysF * (ld_k<DH>() + ld_v<DH>()) * sizeof(float);
+}
+
+// x = hi + lo: hi is x rounded to TF32, lo the rest rounded to TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// c (16 x 8, f32) += a (16 x 8, TF32, row-major) b (8 x 8, TF32, col-major)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma_3x(float (&c)[4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                       const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+// rows [r0, r0 + 64) of a row-major (n, DH) f32 matrix into shared rows of
+// LD floats, by cp.async, 16 bytes a thread a step; rows at or past n are 0
+template <int DH, int LD>
+__device__ __forceinline__ void load_tile_f32(const float* __restrict__ src, int n, int r0,
+                                              float* dst) {
+  constexpr int kChunks = DH / 4;  // 16-byte chunks a row
+  static_assert((kKeysF * kChunks) % kThreadsTC == 0, "whole steps");
+#pragma unroll
+  for (int it = 0; it < kKeysF * kChunks / kThreadsTC; ++it) {
+    const int c = threadIdx.x + it * kThreadsTC;
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 4;
+    const bool in = r0 + r < n;
+    cp_async16(smem_u32(dst + r * LD + col), src + (in ? (size_t)(r0 + r) * DH + col : 0), in);
+  }
+}
+
+// W neighbouring floats (W = 4 or 2), and back
+template <int W>
+__device__ __forceinline__ void ld_vec(const float* p, float (&x)[W]) {
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x, x[1] = t.y;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void st_vec(float* p, const float (&x)[W]) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreadsTC, DH <= 80 ? 2 : 1)
+flash_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H, int Hkv, int n_q,
+                 int n_k, int causal, int window, int q_offset, float scale_log2) {
+  static_assert(DH % 16 == 0, "dh a multiple of 16");
+  constexpr int LDK = ld_k<DH>();
+  constexpr int LDV = ld_v<DH>();
+  constexpr int STAGE = kKeysF * (LDK + LDV);  // floats of a stage: k, then v
+  constexpr int KP = DH / 16;                  // pairs of k-steps of q kT
+  constexpr int NT = kKeysF / 8;               // score tiles of 8 keys
+  constexpr int DT = DH / 8;                   // output tiles of 8 columns
+  constexpr int GW = DH % 32 == 0 ? 4 : 2;     // output tiles a read of v serves
+  extern __shared__ __align__(16) float smf[];
+
+  const int bh = blockIdx.x;  // b * H + h
+  const int qb = gridDim.y - 1 - blockIdx.y;
+  const int b = bh / H;
+  const int hk = (bh % H) / (H / Hkv);
+  const size_t kv_off = ((size_t)b * Hkv + hk) * n_k * DH;
+  q += (size_t)bh * n_q * DH;
+  o += (size_t)bh * n_q * DH;
+  k += kv_off;
+  v += kv_off;
+
+  const int i0 = qb * kRowsTC;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // the thread's rows in its warp's 16: g and g + 8
+  const int tq = lane % 4;  // its accumulator columns in a tile of 8: 2 tq, 2 tq + 1
+
+  // the keys any real row of this block may see: tiles [t0, t1)
+  const int q_lo = i0 + q_offset;
+  const int q_hi = min(i0 + kRowsTC, n_q) - 1 + q_offset;
+  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int k_end = causal ? min(n_k, q_hi + 1) : n_k;
+  const int t0 = k_begin / kKeysF;
+  const int t1 = k_end > k_begin ? (k_end + kKeysF - 1) / kKeysF : t0;
+
+  if (t0 >= t1) {  // no row of the block sees a key: o = 0
+    for (int it = 0; it < kRowsTC * (DH / 4) / kThreadsTC; ++it) {
+      const int c = threadIdx.x + it * kThreadsTC;
+      const int i = i0 + c / (DH / 4);
+      if (i < n_q)
+        *reinterpret_cast<float4*>(o + (size_t)i * DH + (c % (DH / 4)) * 4) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+
+  load_tile_f32<DH, LDK>(q, n_q, i0, smf + STAGE);
+  load_tile_f32<DH, LDK>(k, n_k, t0 * kKeysF, smf);
+  load_tile_f32<DH, LDV>(v, n_k, t0 * kKeysF, smf + kKeysF * LDK);
+  cp_async_commit();
+
+  uint32_t qh[KP][2][4], ql[KP][2][4];  // q's A fragments, both k-steps of a pair
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  }
+  float m[2] = {kNegInf, kNegInf};  // running max, raw-score units
+  float l[2] = {0.f, 0.f};          // this lane's partial sums
+  const int pos0 = i0 + warp * 16 + g + q_offset;  // position of row g
+
+  for (int t = t0; t < t1; ++t) {
+    const float* sk = smf + ((t - t0) & 1) * STAGE;
+    const float* sv = sk + kKeysF * LDK;
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in for every thread; tile t - 1's stage is free
+    if (t == t0) {
+      const float* sq = smf + STAGE + warp * 16 * LDK;
+#pragma unroll
+      for (int kp = 0; kp < KP; ++kp) {
+        const float4 r0 = *reinterpret_cast<const float4*>(sq + g * LDK + 16 * kp + 4 * tq);
+        const float4 r1 =
+            *reinterpret_cast<const float4*>(sq + (g + 8) * LDK + 16 * kp + 4 * tq);
+        split_tf32(r0.x, qh[kp][0][0], ql[kp][0][0]);
+        split_tf32(r1.x, qh[kp][0][1], ql[kp][0][1]);
+        split_tf32(r0.y, qh[kp][0][2], ql[kp][0][2]);
+        split_tf32(r1.y, qh[kp][0][3], ql[kp][0][3]);
+        split_tf32(r0.z, qh[kp][1][0], ql[kp][1][0]);
+        split_tf32(r1.z, qh[kp][1][1], ql[kp][1][1]);
+        split_tf32(r0.w, qh[kp][1][2], ql[kp][1][2]);
+        split_tf32(r1.w, qh[kp][1][3], ql[kp][1][3]);
+      }
+      __syncthreads();  // every warp holds its q before tile t0 + 1 lands on it
+    }
+    if (t + 1 < t1) {  // tile t + 1 into tile t - 1's stage
+      float* dst = smf + ((t + 1 - t0) & 1) * STAGE;
+      load_tile_f32<DH, LDK>(k, n_k, (t + 1) * kKeysF, dst);
+      load_tile_f32<DH, LDV>(v, n_k, (t + 1) * kKeysF, dst + kKeysF * LDK);
+      cp_async_commit();
+    }
+
+    // s = q kT, 16 rows x 64 keys a warp, in two halves of 32 keys. The
+    // products of the hi parts of a pair of k-steps are summed from 0 and
+    // added to s in an f32 add, the two small ones into a sum of their own
+    // that is added at the end: the running sum of large values takes one
+    // rounding a pair of k-steps, not six mma's
+    float s[NT][4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float sm[NT / 2][4];
+#pragma unroll
+      for (int n = 0; n < NT / 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[half * NT / 2 + n][e] = sm[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int kp = 0; kp < KP; ++kp) {
+#pragma unroll
+        for (int n = 0; n < NT / 2; ++n) {
+          const int nn = half * NT / 2 + n;
+          const float4 kb =
+              *reinterpret_cast<const float4*>(sk + (nn * 8 + g) * LDK + 16 * kp + 4 * tq);
+          uint32_t bh[2], bl[2];
+          split_tf32(kb.x, bh[0], bl[0]);
+          split_tf32(kb.y, bh[1], bl[1]);
+          float big[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(sm[n], ql[kp][0], bh[0], bh[1]);
+          mma_tf32(sm[n], qh[kp][0], bl[0], bl[1]);
+          mma_tf32(big, qh[kp][0], bh[0], bh[1]);
+          split_tf32(kb.z, bh[0], bl[0]);
+          split_tf32(kb.w, bh[1], bl[1]);
+          mma_tf32(sm[n], ql[kp][1], bh[0], bh[1]);
+          mma_tf32(sm[n], qh[kp][1], bl[0], bl[1]);
+          mma_tf32(big, qh[kp][1], bh[0], bh[1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nn][e] += big[e];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT / 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[half * NT / 2 + n][e] += sm[n][e];
+      }
+    }
+
+    // online softmax, the mask only on the tiles that need it
+    const int j0 = t * kKeysF;
+    const bool edge = j0 + kKeysF > n_k || (causal && j0 + kKeysF - 1 > q_lo) ||
+                      (window > 0 && j0 <= i0 + kRowsTC - 1 + q_offset - window);
+    const float2 alpha =
+        edge ? softmax_tile<true>(s, m, l, scale_log2, j0, pos0, tq, n_k, causal, window)
+             : softmax_tile<false>(s, m, l, scale_log2, j0, pos0, tq, n_k, causal, window);
+
+    // o = alpha o + p v. The tile's p v is summed in registers of its own,
+    // GW output tiles at a time, and folded in with one rounding (an f32
+    // fma), rather than accumulated into the running output 3 NT times a
+    // tile. Score tile kk is the A fragment of keys 8 kk.. (column tq is
+    // key 2 tq, column tq + 4 key 2 tq + 1).
+#pragma unroll
+    for (int r = 0; r < DT / GW; ++r) {
+      float pv[GW][4];
+#pragma unroll
+      for (int u = 0; u < GW; ++u) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[u][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[kk][0], ph[0], pl[0]);
+        split_tf32(s[kk][2], ph[1], pl[1]);
+        split_tf32(s[kk][1], ph[2], pl[2]);
+        split_tf32(s[kk][3], ph[3], pl[3]);
+        const float* v0 = sv + (kk * 8 + 2 * tq) * LDV + GW * g + 8 * GW * r;  // key 2 tq
+        float b0[GW], b1[GW];
+        ld_vec<GW>(v0, b0);
+        ld_vec<GW>(v0 + LDV, b1);  // key 2 tq + 1
+#pragma unroll
+        for (int u = 0; u < GW; ++u) {
+          uint32_t bh[2], bl[2];
+          split_tf32(b0[u], bh[0], bl[0]);
+          split_tf32(b1[u], bh[1], bl[1]);
+          mma_3x(pv[u], ph, pl, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GW; ++u) {
+        float* a = acc[GW * r + u];
+        a[0] = fmaf(a[0], alpha.x, pv[u][0]);
+        a[1] = fmaf(a[1], alpha.x, pv[u][1]);
+        a[2] = fmaf(a[2], alpha.y, pv[u][2]);
+        a[3] = fmaf(a[3], alpha.y, pv[u][3]);
+      }
+    }
+  }
+
+  // o = acc / max(l, 1e-30); accumulator column 2 tq + e of output tile
+  // GW r + u is dh 8 GW r + GW (2 tq + e) + u
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float denom = fmaxf(l[h], 1e-30f);
+    const int i = i0 + warp * 16 + g + 8 * h;
+    if (i >= n_q) continue;
+    float* orow = o + (size_t)i * DH;
+#pragma unroll
+    for (int r = 0; r < DT / GW; ++r) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x[GW];
+#pragma unroll
+        for (int u = 0; u < GW; ++u) x[u] = acc[GW * r + u][2 * h + e] / denom;
+        st_vec<GW>(orow + 8 * GW * r + GW * (2 * tq + e), x);
+      }
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
+                       int Hkv, int n_q, int n_k, int causal, int window, int q_offset,
+                       float scale, cudaStream_t s) {
+  const size_t bytes = smem_bytes_f32<DH>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (n_q + kRowsTC - 1) / kRowsTC);
+  flash_kernel_f32<DH><<<grid, kThreadsTC, bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, n_q, n_k, causal,
+      window, q_offset, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <int DH>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, int B,
                    int H, int Hkv, int n_q, int n_k, int causal, int window, int q_offset,
                    float scale, cudaStream_t s) {
   if (dtype == 0)
-    return launch_fma<DH>(q, k, v, o, B, H, Hkv, n_q, n_k, causal, window, q_offset, scale, s);
+    return launch_f32<DH>(q, k, v, o, B, H, Hkv, n_q, n_k, causal, window, q_offset, scale, s);
   return launch_tc<DH>(q, k, v, o, B, H, Hkv, n_q, n_k, causal, window, q_offset, scale, s);
 }
 
 }  // namespace
 
 // o (B, H, T, dh) = attention of q (B, H, T, dh) over k, v (B, Hkv, S, dh),
-// all contiguous and of one type: f32 (dtype 0) or bf16 (dtype 1, each
-// pointer 16-byte aligned). dh is 32, 64, 80 or 128 and H a multiple of
+// all contiguous, of one type, f32 (dtype 0) or bf16 (dtype 1), and each
+// pointer 16-byte aligned. dh is 32, 64, 80 or 128 and H a multiple of
 // Hkv. Launch on `stream`; returns cudaGetLastError() (0 = launched),
 // cudaErrorInvalidValue for arguments the kernel does not take, or
-// cudaErrorMisalignedAddress for a bf16 pointer off 16 bytes.
+// cudaErrorMisalignedAddress for a pointer off 16 bytes.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int H, int Hkv, int T, int S, int dh,
                                       int causal, int window, int q_offset, float scale,
@@ -675,7 +802,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (dtype == 1 && (addr & 15) != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  if ((addr & 15) != 0) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dh) {

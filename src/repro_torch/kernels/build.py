@@ -39,7 +39,7 @@ SIGNATURES = {
     "l1_bwd": ("l1_bwd_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, *[_I] * 9, _F, _I, _P]),
-    "ssd_scan": ("ssd_scan_launch", [*[_P] * 6, *[_I] * 5, _P]),
+    "ssd_scan": ("ssd_scan_launch", [*[_P] * 7, *[_I] * 5, _P]),
 }
 
 # launches per kernel; the pairwise kernel counts per mode, the l1 backward

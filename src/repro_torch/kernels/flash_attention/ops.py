@@ -44,8 +44,8 @@ def flash_attention_kernel(q, k, v, causal=True, window=0, q_offset=0):
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention kernel: {H} query heads are not a "
                          f"multiple of {Hkv} kv heads")
-    # the bf16 kernel copies 16-byte chunks: a contiguous view that starts
-    # off 16 bytes into its storage is copied to a fresh one
+    # both kernels copy 16-byte chunks: a contiguous view that starts off
+    # 16 bytes into its storage is copied to a fresh one
     q, k, v = (t.contiguous() for t in ts)
     q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     out = torch.empty_like(q)

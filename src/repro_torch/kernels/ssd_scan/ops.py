@@ -5,8 +5,10 @@ x (batch, T, H, P), dt (batch, T, H), A (H,), B and C (batch, T, N), and
 returns y (batch, T, H, P) from a zero state; all f32. The JAX package's
 wrapper (kernels/ssd_scan/ops.py) took one sequence, made it head-major and
 formed ga = A dt; the kernel does that itself, for every (sequence, head)
-in one launch, at any T (it masks a ragged last chunk; the TPU wrapper's
-``chunk`` is not an argument: the kernel picks its own).
+in one call of two launches (C B^T of every (sequence, chunk) into a
+scratch the wrapper allocates, then the scan), at any T (it masks a ragged
+last chunk; the TPU wrapper's ``chunk`` is not an argument: the kernel
+picks its own).
 
 The tensors' device picks the path: CUDA tensors go to the kernel, which
 takes f32 of these shapes with P <= 64 and N <= 128, both multiples of 4
@@ -25,6 +27,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunked_batched
 
 MAX_HEAD_DIM = 64  # P, the kernel's staged width
 MAX_STATE = 128  # N
+CHUNK = 64  # the kernel's chunk rows
 
 
 def _check_no_grad(ts):
@@ -35,7 +38,8 @@ def _check_no_grad(ts):
 
 
 def ssd_scan_kernel(x, dt, A, B, C) -> torch.Tensor:
-    """Launch the CUDA kernel once for the whole (batch, H) grid."""
+    """Launch the CUDA kernel for the whole (batch, H) grid: two launches,
+    the Gram matrices of every (sequence, chunk), then the scan."""
     ts = (x, dt, A, B, C)
     _check_no_grad(ts)
     if not (x.is_cuda and all(t.device == x.device for t in ts)):
@@ -60,8 +64,11 @@ def ssd_scan_kernel(x, dt, A, B, C) -> torch.Tensor:
                       for t in (t.contiguous() for t in ts))
     y = torch.empty_like(x)
     if y.numel():
+        # scratch for C B^T of every (sequence, chunk), which the kernel's
+        # first launch writes and its second reads for every head
+        gram = torch.empty(Bsz, -(-T // CHUNK), CHUNK, CHUNK, device=x.device)
         build.launch("ssd_scan", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                     C.data_ptr(), y.data_ptr(), Bsz, T, H, P, N,
+                     C.data_ptr(), y.data_ptr(), gram.data_ptr(), Bsz, T, H, P, N,
                      torch.cuda.current_stream(x.device).cuda_stream)
         build.LAUNCHES["ssd_scan"] += 1
     return y

@@ -407,6 +407,73 @@ def test_flash_attention_kernel_edges(cuda, case, dtype):
     _check_flash(cuda, *shape, dtype, scale=scale)
 
 
+def _mha_f64(q, k, v, causal, window, q_offset):
+    """mha_ref's function evaluated in float64 (mha_ref computes in f32)."""
+    B, H, T, dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    kk, vv = (t.double().repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    qpos = torch.arange(T, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones(T, S, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    s = torch.where(ok, q.double() @ kk.transpose(-1, -2) * dh ** -0.5, -1e300)
+    p = torch.where(ok, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    return (p @ vv) / p.sum(-1, keepdim=True).clamp_min(1e-300)
+
+
+# f32 inputs that stress the 3xTF32 split of flash_kernel_f32, (B, H, Hkv,
+# T, S, dh, window, q_offset, kind), every head dim: "big", q, k and v of
+# magnitude 8 (scores up to ~250 at the kernel's scale dh^-0.5); "cancel",
+# v's rows +-(1 + 1e-3 noise), one sign a row, so |o| is far below |v|;
+# "edge", windows whose edge falls inside a 64-key tile
+FLASH_SPLIT_CASES = [
+    (1, 4, 2, 200, 200, 32, 0, 0, "big"),
+    (1, 4, 2, 200, 200, 64, 0, 0, "big"),
+    (1, 4, 2, 200, 200, 80, 0, 0, "big"),
+    (1, 4, 2, 200, 200, 128, 0, 0, "big"),
+    (1, 4, 2, 257, 257, 32, 0, 0, "cancel"),
+    (1, 4, 2, 257, 257, 64, 0, 0, "cancel"),
+    (1, 4, 2, 257, 257, 80, 0, 0, "cancel"),
+    (1, 4, 2, 257, 257, 128, 0, 0, "cancel"),
+    (1, 4, 1, 300, 300, 64, 37, 0, "edge"),
+    (2, 4, 2, 130, 200, 80, 45, 70, "edge"),
+    (1, 2, 2, 100, 100, 128, 90, 0, "edge"),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_SPLIT_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_f32_split(cuda, case):
+    """The f32 kernel within 2e-5 x max(1, max|plain|) of the plain version,
+    and no farther from the float64 value of the function than the plain
+    version is plus that gate."""
+    *shape, kind = case
+    B, H, Hkv, T, S, dh, win, qoff = shape
+    rng = _rng(18)
+    q, k, v = (rng.standard_normal(s) for s in ((B, H, T, dh), (B, Hkv, S, dh),
+                                                 (B, Hkv, S, dh)))
+    if kind == "big":
+        q, k, v = 8 * q, 8 * k, 8 * v
+    elif kind == "cancel":
+        v = np.where(rng.random((B, Hkv, S, 1)) < 0.5, -1.0, 1.0) * (1 + 1e-3 * v)
+    q, k, v = (torch.tensor(a, dtype=torch.float32, device=cuda) for a in (q, k, v))
+    out = flash_attention(q, k, v, causal=True, window=win, q_offset=qoff)
+    plain = mha_ref(q, k, v, causal=True, window=win, q_offset=qoff)
+    exact = _mha_f64(q, k, v, True, win, qoff)
+    torch.cuda.synchronize()
+    gate = 2e-5 * max(1.0, float(plain.abs().max()))
+    err = float((out - plain).abs().max())
+    err_exact = float((out.double() - exact).abs().max())
+    plain_exact = float((plain.double() - exact).abs().max())
+    print(f"{case}: kernel vs plain {err / gate:.3f} of the gate; vs float64 "
+          f"{err_exact / gate:.3f}, plain vs float64 {plain_exact / gate:.3f}")
+    assert bool(torch.isfinite(out).all())
+    assert err <= gate
+    assert err_exact <= plain_exact + gate
+
+
 def test_flash_attention_takes_a_view_off_16_bytes(cuda):
     """A contiguous bf16 view that starts 2 bytes into its storage is copied
     to an aligned one before the launch."""
@@ -512,6 +579,42 @@ def test_ssd_scan_kernel_matches_plain(cuda, shape):
     if shape[1] <= 2048:
         ref = torch.stack([ssd_ref(x[b], dt[b], A, B[b], C[b])[0] for b in range(shape[0])])
         assert float((y - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+
+
+# (B, T, H, P, N) where the kernel's grid and its shared Gram matrices could
+# go wrong: H of 3, 5 and 81 (no head group divides them); P of 4 and 60
+# (one and two column slices, both ragged); N of 4 and 124; T of 63, 65
+# and 129 (a ragged last chunk, a chunk of one row); B = 3, each sequence
+# with data of its own
+SSD_GRID_CASES = [
+    (1, 130, 3, 64, 128),
+    (2, 65, 5, 32, 64),
+    (1, 200, 81, 64, 128),
+    (2, 129, 4, 4, 16),
+    (1, 129, 6, 60, 128),
+    (2, 100, 4, 64, 4),
+    (1, 96, 3, 64, 124),
+    (3, 63, 2, 64, 128),
+    (3, 65, 3, 60, 124),
+    (3, 129, 5, 8, 16),
+]
+
+
+@pytest.mark.parametrize("shape", SSD_GRID_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_ssd_scan_kernel_grid_edges(cuda, shape):
+    """Against the plain chunked version (2e-5) and ``ssd_ref`` (1e-4); each
+    sequence of a batch gives, bit for bit, what it gives alone, so no
+    sequence reads another's Gram matrices."""
+    x, dt, A, B, C = _ssd_inputs(shape, cuda, 19)
+    y = ssd_scan(x, dt, A, B, C)
+    plain = ssd_chunked_batched(x, dt, A, B, C)
+    ref = torch.stack([ssd_ref(x[b], dt[b], A, B[b], C[b])[0] for b in range(shape[0])])
+    torch.cuda.synchronize()
+    assert float((y - plain).abs().max()) <= 2e-5 * max(1.0, float(plain.abs().max()))
+    assert float((y - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+    for b in range(shape[0]):
+        alone = ssd_scan(x[b:b + 1], dt[b:b + 1], A, B[b:b + 1], C[b:b + 1])
+        torch.testing.assert_close(y[b:b + 1], alone, rtol=0, atol=0)
 
 
 def test_ssd_scan_kernel_steep_decay(cuda):
