@@ -8,9 +8,11 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build: every CUDA kernel of the port, compiled from csrc/ in parallel;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main paths' shapes and ragged ones (the l1 pairwise forward also at
-     eval's 512 x 14,951 x 400; flash attention at Qwen1.5-0.5B's prefill in
-     bf16 and f32, H2O-Danube-1.8B's GQA and window, a ragged and a
-     decode-like shape in f32 and in bf16, with SDPA's own error beside
+     eval's 512 x 14,951 x 400; the l1 backward's products alone and as the
+     pair the path asks for, each called twice for the same bits, with the
+     tile height and split each launch plans; flash attention at Qwen1.5-0.5B's prefill in bf16 and f32,
+     H2O-Danube-1.8B's GQA and window, a ragged and a decode-like shape in
+     f32 and in bf16, with SDPA's own error beside
      the kernel's; the SSD scan at Mamba2-2.7B's prefill, a long
      sequence, a ragged T and T = 1, also against the step-by-step
      ``ssd_ref``), with its time, the plain version's time, one PyTorch
@@ -34,11 +36,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      every kernel of the path must have launched at least twice a step;
   6. TransE_l1 path: the same with ``--model transe_l1 --eval --eval-n 2000
      --ckpt-dir build/chip_smoke_ckpt --save-every 100``; the loss must fall,
-     the pairwise l1 and both l1 backward kernels launch at least twice a
-     step, the final filtered eval prints finite metrics, the trained tables
-     rank better than fresh ones, the card's filtered ranks equal the CPU
-     path's except where near-ties explain the difference, the checkpoint of
-     step 200 holds the final state and restores on the card bit for bit,
+     the pairwise l1 and the l1 backward pair (both products) launch at
+     least twice a step, the final filtered eval prints finite metrics, the
+     trained tables rank better than fresh ones, the card's filtered ranks
+     equal the CPU path's except where near-ties explain the difference,
+     the checkpoint of step 200 holds the final state and restores on the
+     card bit for bit,
      and ``--resume --steps 210`` goes on from step 200.
   7. DistMult path: the same as phase 5 with ``--model distmult``: the
      pairwise dot forward (its backward is plain matmuls), dedup and update;
@@ -99,11 +102,13 @@ MAIN_PATH_STEPS = 200
 RESUME_STEPS = 210
 # (G, B, K, D): the training path's pairwise call, a ragged one, eval's
 # chunk of 512 queries against every entity, and the l1 backward's shapes
-# (B and K swapped runs each tile shape with g read both ways)
+# (B and K swapped reads g both ways at both sizes of reduction; the last
+# one's reductions, 777 and 300 long, end inside a split's slice)
 PATH_SHAPE = (1, 1024, 256, 400)
 RAGGED_SHAPE = (2, 1000, 250, 300)
 EVAL_SHAPE = (1, 512, 14951, 400)
-L1_BWD_SHAPES = (PATH_SHAPE, RAGGED_SHAPE, (3, 65, 129, 33), (1, 256, 1024, 400))
+L1_BWD_SHAPES = (PATH_SHAPE, RAGGED_SHAPE, (3, 65, 129, 33), (1, 256, 1024, 400),
+                 (1, 777, 300, 401))
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # flash attention, (B, H, Hkv, T, S, dh, window, q_offset, dtype); the first
 # is what the Qwen prefill path launches
@@ -141,6 +146,7 @@ TPU_KERNEL = {
     # l1_bwd_pallas (:119), its two pallas_calls
     "l1_bwd_do": "src/repro/kernels/kge_score/kge_score.py:123",
     "l1_bwd_dn": "src/repro/kernels/kge_score/kge_score.py:135",
+    "l1_bwd_pair": "src/repro/kernels/kge_score/kge_score.py:119",
     # flash_attention_pallas (:90), its pallas_call at :116
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:90",
     # ssd_scan_pallas (:67), its pallas_call at :85
@@ -320,16 +326,22 @@ def check_pairwise(torch, dev, gen):
 
 def check_l1_bwd(torch, dev, gen):
     """Both products of the l1 backward against the plain ``l1_grads_ref``,
-    each timed alone at the training path's shape: the kernel, the plain
+    each called twice at every shape (the same bits both times), then timed
+    at the training path's shape: each product alone (the kernel, the plain
     version asked for that product only, and the yardstick, ATen's cdist
-    backward, which is the same function for p = 1: d_o = _cdist_backward(g,
-    o, n, 1, cdist), d_n the same with the roles swapped and g, cdist
-    transposed."""
-    from repro_torch.kernels.kge_score.ops import l1_bwd_kernel
+    backward, which is the same function for p = 1: d_o =
+    _cdist_backward(g, o, n, 1, cdist), d_n the same with the roles swapped
+    and g, cdist transposed), and the pair as the path asks for it (both
+    products; the yardstick the two cdist backward calls in sequence), with
+    the plan each launch takes there."""
+    from repro_torch.kernels.kge_score.ops import (
+        l1_bwd_kernel, l1_bwd_pair_plan, l1_bwd_plan,
+    )
     from repro_torch.kernels.kge_score.ref import l1_grads_ref
 
     path = PATH_SHAPE
-    errs = {"l1_bwd_do": (0.0, 0.0), "l1_bwd_dn": (0.0, 0.0)}
+    # the products alone, and both from the pair launch
+    errs = {"l1_bwd_do": (0.0, 0.0), "l1_bwd_dn": (0.0, 0.0), "l1_bwd_pair": (0.0, 0.0)}
     data = {}
     for shape in L1_BWD_SHAPES:
         G, B, K, D = shape
@@ -338,13 +350,23 @@ def check_l1_bwd(torch, dev, gen):
         g = torch.randn(G, B, K, generator=gen).to(dev)
         data[shape] = (o, n, g)
         got = l1_bwd_kernel(o, n, g)
+        again = l1_bwd_kernel(o, n, g)
         want = l1_grads_ref(o, n, g)
-        for name, a, b in zip(errs, got, want):
-            e, t = _max_err(torch, a, b)
-            print(f"  {name} {shape}: max_abs_err {e:.3e} (tol {t:.3e})")
-            check(a.shape == b.shape and math.isfinite(e) and e <= t,
-                  f"{name} {shape} disagrees: {e} > {t}")
-            errs[name] = (max(errs[name][0], e), max(errs[name][1], t))
+        alone = (l1_bwd_kernel(o, n, g, need_dn=False)[0],
+                 l1_bwd_kernel(o, n, g, need_do=False)[1])
+        plans = [l1_bwd_plan(G, B, K, D, False), l1_bwd_plan(G, K, B, D, True)]
+        print(f"  l1_bwd {shape}: both products in one pass, K split "
+              f"{l1_bwd_pair_plan(G, B, K, D)} ways; alone, tile rows x split "
+              f"d_o {plans[0][0]}x{plans[0][1]}, d_n {plans[1][0]}x{plans[1][1]}")
+        for name, a, a2, a1, b in zip(("l1_bwd_do", "l1_bwd_dn"), got, again, alone, want):
+            for key, x in (("l1_bwd_pair", a), (name, a1)):
+                e, t = _max_err(torch, x, b)
+                print(f"  {name} {shape} {'pair' if key == 'l1_bwd_pair' else 'alone'}: "
+                      f"max_abs_err {e:.3e} (tol {t:.3e})")
+                check(x.shape == b.shape and math.isfinite(e) and e <= t,
+                      f"{name} {shape} disagrees ({key}): {e} > {t}")
+                errs[key] = (max(errs[key][0], e), max(errs[key][1], t))
+            check(torch.equal(a, a2), f"{name} {shape}: two calls differ")
 
     G, B, K, D = path
     o, n, g = data[path]
@@ -353,20 +375,36 @@ def check_l1_bwd(torch, dev, gen):
     cdist_bwd = torch.ops.aten._cdist_backward
     library = {"l1_bwd_do": lambda: cdist_bwd(g, o, n, 1.0, cd),
                "l1_bwd_dn": lambda: cdist_bwd(gt, n, o, 1.0, cdt)}
-    need = {"l1_bwd_do": dict(need_dn=False), "l1_bwd_dn": dict(need_do=False)}
+    library["l1_bwd_pair"] = lambda: (library["l1_bwd_do"](), library["l1_bwd_dn"]())
+    need = {"l1_bwd_do": dict(need_dn=False), "l1_bwd_dn": dict(need_do=False),
+            "l1_bwd_pair": {}}
+    outs = {"l1_bwd_do": B * D, "l1_bwd_dn": K * D, "l1_bwd_pair": (B + K) * D}
+    # a sign, a product and a sum an element for each product; the pair's
+    # least work takes the sign once
+    ops = {"l1_bwd_do": 3, "l1_bwd_dn": 3, "l1_bwd_pair": 5}
     want = dict(zip(errs, l1_grads_ref(o, n, g)))
     rows = []
-    for name in errs:
-        lib_err, _ = _max_err(torch, library[name](), want[name])
+    for name in need:
+        if name in want:
+            lib_err, _ = _max_err(torch, library[name](), want[name])
+        else:
+            lib_err = max(_max_err(torch, a, want[k])[0] for a, k in
+                          zip(library[name](), ("l1_bwd_do", "l1_bwd_dn")))
         print(f"  {name}: _cdist_backward vs plain max_abs_err {lib_err:.3e}")
         tm = timings(torch, lambda: l1_bwd_kernel(o, n, g, **need[name]),
                      lambda: l1_grads_ref(o, n, g, **need[name]), library[name])
-        out = B * D if name == "l1_bwd_do" else K * D
-        b_ms, b_by = bound(4 * G * (B * D + K * D + B * K + out), 3 * G * B * K * D)
+        b_ms, b_by = bound(4 * G * (B * D + K * D + B * K + outs[name]),
+                           ops[name] * G * B * K * D)
         rows.append(dict(name=name, source="src/repro_torch/csrc/l1_bwd.cu",
                          replaces=TPU_KERNEL[name], max_abs_err=errs[name][0],
                          tol=errs[name][1], bound_ms=b_ms, bound_by=b_by,
                          shape=f"{G}x{B}x{K}x{D}", library_err=lib_err, **tm))
+
+    plans = {"l1_bwd_do": "%dx%d" % l1_bwd_plan(G, B, K, D, False),
+             "l1_bwd_dn": "%dx%d" % l1_bwd_plan(G, K, B, D, True),
+             "l1_bwd_pair": "64x%d" % l1_bwd_pair_plan(G, B, K, D)}
+    for row in rows:
+        row["plan"] = plans[row["name"]]
     return rows
 
 
@@ -934,7 +972,7 @@ def run_l1_path(torch, np, dev, kg):
     # the step time is taken after the save at step 100
     launches, summary, cfg, state, out = run_path(
         torch, np, "transe_l1", ["--eval", "--eval-n", "2000", *ckpt], 100)
-    check_launched(launches, ("pairwise_l1", "l1_bwd_do", "l1_bwd_dn",
+    check_launched(launches, ("pairwise_l1", "l1_bwd_do", "l1_bwd_dn", "l1_bwd_pair",
                               "dedup_aggregate", "fused_update"), MAIN_PATH_STEPS)
 
     evals = re.findall(r"eval: MRR (\S+) \| MR (\S+) \| Hit@1 (\S+) \| Hit@3 (\S+) "
@@ -1328,10 +1366,14 @@ def main() -> int:
 
     print("== 3. kernels vs plain versions")
     kg = fb15k_like(scale=1.0, seed=0)
-    gen = torch.Generator().manual_seed(0)
-    rows = check_pairwise(torch, dev, gen) + check_l1_bwd(torch, dev, gen) \
-        + check_dedup(torch, np, dev, gen, kg) + check_update(torch, dev, gen) \
-        + check_flash(torch, dev, gen) + check_ssd(torch, dev, gen)
+    # each check draws from a generator of its own, so that a shape added to
+    # one check leaves every other check's inputs as they were
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    rows = check_pairwise(torch, dev, gen(0)) + check_l1_bwd(torch, dev, gen(1)) \
+        + check_dedup(torch, np, dev, gen(2), kg) + check_update(torch, dev, gen(3)) \
+        + check_flash(torch, dev, gen(4)) + check_ssd(torch, dev, gen(5))
     for r in rows:
         print(f"  {r['name']:16s} {r['shape']:>18s}: {_fmt(r)}  err "
               f"{r['max_abs_err']:.2e} <= {r['tol']:.2e}")
@@ -1385,15 +1427,13 @@ def main() -> int:
                                                "ssd_scan", reuse, scaled_f32=True)
     del reuse
 
+    launches_of = {"transe_l2": l2_launches, "transe_l1": l1_launches,
+                   "distmult": dm_launches, "qwen_prefill": pre_launches,
+                   "qwen_serve": serve_launches, "mamba2_prefill": m_pre_launches,
+                   "mamba2_serve": m_serve_launches}
     kernels = []
     for r in rows:
-        by_path = {"transe_l2": l2_launches[r["name"]],
-                   "transe_l1": l1_launches[r["name"]],
-                   "distmult": dm_launches[r["name"]],
-                   "qwen_prefill": pre_launches[r["name"]],
-                   "qwen_serve": serve_launches[r["name"]],
-                   "mamba2_prefill": m_pre_launches[r["name"]],
-                   "mamba2_serve": m_serve_launches[r["name"]]}
+        by_path = {p: n[r["name"]] for p, n in launches_of.items()}
         kernels.append(dict(
             name=r["name"], route="cuda", source=r["source"], replaces=r["replaces"],
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1402,7 +1442,14 @@ def main() -> int:
             bound_by=r["bound_by"], library_ms=r["library_ms"], event_ms=r["event_ms"],
             shape=r["shape"],
             **{k: r[k] for k in ("fp32_bound_ms", "ref_err", "ref_tol", "library",
-                                 "other_shapes") if k in r}))
+                                 "other_shapes", "plan") if k in r}))
+        if r["name"] in ("l1_bwd_do", "l1_bwd_dn"):
+            # the counter counts each product computed; on a path that asks
+            # for both, the product ran inside the l1_bwd_pair launch, whose
+            # row holds its time
+            alone = {p: n[r["name"]] - n["l1_bwd_pair"] for p, n in launches_of.items()}
+            kernels[-1].update(runs_in="l1_bwd_pair", launches_alone=sum(alone.values()),
+                               launches_alone_by_path=alone)
     print(json.dumps({"paths": {"transe_l2": l2_path, "transe_l1": l1_path,
                                 "distmult": dm_path, "qwen_prefill": pre_path, "qwen_serve": serve_path,
                                 "mamba2_prefill": m_pre_path,

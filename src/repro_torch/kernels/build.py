@@ -41,12 +41,23 @@ SIGNATURES = {
                         [_P, _P, _P, _P, *[_I] * 9, _F, _I, _P]),
     "ssd_scan": ("ssd_scan_launch", [*[_P] * 7, *[_I] * 5, _P]),
 }
+# a source's other C functions: symbol -> (argtypes, restype)
+FUNCTIONS = {
+    "l1_bwd": {
+        "l1_bwd_pair_launch": ([*[_P] * 6, *[_I] * 4, _P], _I),
+        "l1_bwd_pair_scratch": ([_I] * 4, _LL),
+        "l1_bwd_plan": ([*[_I] * 5, *[ctypes.POINTER(_I)] * 2], _I),
+        "l1_bwd_pair_plan": ([_I] * 4, _I),
+    },
+}
 
-# launches per kernel; the pairwise kernel counts per mode, the l1 backward
-# per product (d_o, d_n)
+# launches per kernel; the pairwise kernel counts per mode; the l1 backward
+# per product computed (d_o, d_n), and l1_bwd_pair the calls that computed
+# both in one pass (two launches each: the pass, then d_n's partial sums)
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("pairwise_dot", "pairwise_l2sq", "pairwise_l1", "dedup_aggregate",
-     "fused_update", "l1_bwd_do", "l1_bwd_dn", "flash_attention", "ssd_scan"), 0)
+     "fused_update", "l1_bwd_do", "l1_bwd_dn", "l1_bwd_pair", "flash_attention",
+     "ssd_scan"), 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -120,16 +131,19 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build([name])[name]))
             symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for sym, (args, res) in {symbol: (argtypes, _I),
+                                     **FUNCTIONS.get(name, {})}.items():
+                fn = getattr(lib, sym)
+                fn.argtypes = args
+                fn.restype = res
             _LIBS[name] = lib
         return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call the launch function of ``name``; raise if the launch failed."""
-    fn = getattr(library(name), SIGNATURES[name][0])
+def launch(name: str, *args, symbol: str = "") -> None:
+    """Call the launch function of ``name`` (or its function ``symbol``);
+    raise if the launch failed."""
+    fn = getattr(library(name), symbol or SIGNATURES[name][0])
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

@@ -11,11 +11,13 @@ Backward (``_Pairwise``), as in the reference's custom VJP (JAX ops.py:64-84):
   l2sq : d_o = 2 (o * rowsum(g) - g @ negs) ; symmetric (plain matmuls)
   l1   : d_o = sum_k g sign(o - n_k) ; d_n = -sum_b g sign(o_b - n)
          (``l1_bwd_kernel``; the plain ``l1_grads_ref`` on the CPU). Only the
-         products autograd asks for are computed.
+         products autograd asks for are computed; both (the training path)
+         from one pass over the compare pairs.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -69,7 +71,14 @@ def l1_bwd_kernel(o: torch.Tensor, negs: torch.Tensor, g: torch.Tensor,
                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Launch the CUDA l1 backward: d_o (.., B, D) and d_n (.., K, D) of
     ``sum(g * pairwise_l1(o, negs))``, each only when asked for (else None).
-    ``g`` is (.., B, K); all fp32, contiguous, on one CUDA device."""
+    ``g`` is (.., B, K); all fp32, contiguous, on one CUDA device.
+
+    Both products come from one pass over the compare pairs (two launches:
+    the pass, then the in-order sum of d_n's partials, kept in a scratch of
+    ``B / 64`` (G, K, D) blocks); one product alone from a launch of its
+    own, which splits its reduction over a thread-block cluster of up to 8
+    blocks (``l1_bwd_plan``). Every partial sum is combined in a fixed
+    order, so two calls give the same bits."""
     o3, n3, g3 = _as_groups("l1_bwd", o, negs, g)
     G, B, D = o3.shape
     K = n3.shape[1]
@@ -77,21 +86,55 @@ def l1_bwd_kernel(o: torch.Tensor, negs: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"l1_bwd kernel: g {tuple(g.shape)} does not match "
                          f"{tuple(o.shape)} x {tuple(negs.shape)}")
     stream = torch.cuda.current_stream(o.device).cuda_stream
-    out = []
-    # (need, x, y, rows, reduction length, w read transposed, counter)
-    for need, x, y, R, C, trans, name in (
-            (need_do, o3, n3, B, K, 0, "l1_bwd_do"),
-            (need_dn, n3, o3, K, B, 1, "l1_bwd_dn")):
-        if not need:
-            out.append(None)
-            continue
-        d = torch.empty((G, R, D), device=o.device, dtype=torch.float32)
-        if d.numel():
-            build.launch("l1_bwd", x.data_ptr(), y.data_ptr(), g3.data_ptr(),
-                         d.data_ptr(), G, R, C, D, trans, stream)
-            build.LAUNCHES[name] += 1
-        out.append(d if o.dim() == 3 else d[0])
+
+    def empty(*shape):
+        return torch.empty(shape, device=o.device, dtype=torch.float32)
+
+    if need_do and need_dn:
+        d_o, d_n = empty(G, B, D), empty(G, K, D)
+        if d_o.numel() or d_n.numel():
+            scratch = empty(build.library("l1_bwd").l1_bwd_pair_scratch(G, B, K, D))
+            build.launch("l1_bwd", o3.data_ptr(), n3.data_ptr(), g3.data_ptr(),
+                         d_o.data_ptr(), d_n.data_ptr(), scratch.data_ptr(),
+                         G, B, K, D, stream, symbol="l1_bwd_pair_launch")
+            for name in ("l1_bwd_pair", "l1_bwd_do", "l1_bwd_dn"):
+                build.LAUNCHES[name] += 1
+        out = [d_o, d_n]
+    else:
+        out = []
+        # (need, x, y, rows, reduction length, w read transposed, counter)
+        for need, x, y, R, C, trans, name in (
+                (need_do, o3, n3, B, K, 0, "l1_bwd_do"),
+                (need_dn, n3, o3, K, B, 1, "l1_bwd_dn")):
+            if not need:
+                out.append(None)
+                continue
+            d = empty(G, R, D)
+            if d.numel():
+                build.launch("l1_bwd", x.data_ptr(), y.data_ptr(), g3.data_ptr(),
+                             d.data_ptr(), G, R, C, D, trans, stream)
+                build.LAUNCHES[name] += 1
+            out.append(d)
+    if o.dim() == 2:
+        out = [d if d is None else d[0] for d in out]
     return out[0], out[1]
+
+
+def l1_bwd_plan(G: int, R: int, C: int, D: int, trans_w: bool) -> Tuple[int, int]:
+    """(tile rows, blocks a tile's reduction is split over) that the l1
+    backward kernel picks on the current CUDA device for one product, an
+    (R, D) output summed over C: d_o is (B, K) with trans_w False, d_n
+    (K, B) with True. The pair launch's tiles are 64 rows of o; its split
+    of K is ``l1_bwd_pair_plan``."""
+    rows, split = ctypes.c_int(), ctypes.c_int()
+    build.library("l1_bwd").l1_bwd_plan(G, R, C, D, int(trans_w), ctypes.byref(rows),
+                                        ctypes.byref(split))
+    return rows.value, split.value
+
+
+def l1_bwd_pair_plan(G: int, B: int, K: int, D: int) -> int:
+    """The split of K that the pair launch picks on the current CUDA device."""
+    return build.library("l1_bwd").l1_bwd_pair_plan(G, B, K, D)
 
 
 class _Pairwise(torch.autograd.Function):

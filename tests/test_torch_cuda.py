@@ -15,7 +15,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.kge_score.ops import (
-    l1_bwd_kernel, pairwise_kernel, pairwise_scores,
+    l1_bwd_kernel, l1_bwd_pair_plan, l1_bwd_plan, pairwise_kernel, pairwise_scores,
 )
 from repro_torch.kernels.kge_score.ref import l1_grads_ref, pairwise_ref
 from repro_torch.kernels.sparse_adagrad.ops import dedup_aggregate, fused_sparse_adagrad
@@ -111,6 +111,56 @@ def test_l1_bwd_kernel_ties_and_requested_grads(cuda):
     pairwise_scores("l1", o, n).sum().backward()  # g = ones, expanded
     want, _ = l1_grads_ref(o.detach(), n, torch.ones_like(g))
     torch.testing.assert_close(o.grad, want, rtol=1e-5, atol=1e-5)
+
+
+# reduction lengths around the kernel's slices: a chunk is 32 long and a
+# split at most 8 chunks, so 256 is where the widest split's slices reach a
+# whole chunk each
+L1_SPLIT_LENGTHS = [1, 7, 255, 256, 257, 1023, 1025, 4096]
+
+
+@pytest.mark.parametrize("scale", [1, 8])
+@pytest.mark.parametrize("D", [33, 401])
+@pytest.mark.parametrize("product", ["d_o", "d_n"])
+@pytest.mark.parametrize("C", L1_SPLIT_LENGTHS)
+def test_l1_bwd_kernel_split_edges_and_determinism(cuda, C, product, D, scale):
+    """Both products, from the pair launch and each alone, with the
+    reduction of one of them ``C`` long (K for d_o, B for d_n; the other
+    100), ragged D, three groups, ties (half of n's rows copies of rows of
+    o, and +-0 entries on both sides), against the plain version at the
+    gate; two calls give the same bits. At D 33 the output is six tiles, so
+    the lengths about 8 chunks long run at the widest split (8 blocks, a
+    slice of one chunk or two each), alone and in the pair's split of K."""
+    G, other = 3, 100
+    B, K = (other, C) if product == "d_o" else (C, other)
+    if D == 33 and C in (255, 256, 257):
+        R = B if product == "d_o" else K  # the rows of the C-long product
+        assert l1_bwd_plan(G, R, C, D, product == "d_n")[1] == 8
+        if product == "d_o":
+            assert l1_bwd_pair_plan(G, B, K, D) == 8
+    rng = _rng(24)
+    o = scale * rng.standard_normal((G, B, D))
+    n = scale * rng.standard_normal((G, K, D))
+    n[:, : (K + 1) // 2] = o[:, rng.integers(0, B, (K + 1) // 2)]
+    for a in (o, n):
+        a[rng.random(a.shape) < 0.05] = 0.0
+        a[rng.random(a.shape) < 0.05] = -0.0
+    o, n = (torch.tensor(a, dtype=torch.float32, device=cuda) for a in (o, n))
+    g = torch.tensor(scale * rng.standard_normal((G, B, K)), dtype=torch.float32,
+                     device=cuda)
+    want = l1_grads_ref(o, n, g)
+    for need in ({}, dict(need_dn=False), dict(need_do=False)):
+        got = l1_bwd_kernel(o, n, g, **need)
+        again = l1_bwd_kernel(o, n, g, **need)
+        torch.cuda.synchronize()
+        for a, a2, b in zip(got, again, want):
+            if a is None:
+                continue
+            assert a.shape == b.shape
+            assert torch.equal(a, a2)
+            # fp32 sums of B or K terms in another order: 2e-5 of the largest value
+            tol = 2e-5 * max(1.0, float(b.abs().max()))
+            assert float((a - b).abs().max()) <= tol
 
 
 def test_eval_ranks_on_card_match_cpu(cuda):
