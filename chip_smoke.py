@@ -8,9 +8,11 @@ Phases, each fatal on failure (exit code 1, no result line):
   2. build: every CUDA kernel of the port, compiled from csrc/ in parallel;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main paths' shapes and ragged ones (the l1 pairwise forward also at
-     eval's 512 x 14,951 x 400; the l1 backward's products alone and as the
-     pair the path asks for, each called twice for the same bits, with the
-     tile height and split each launch plans; flash attention at Qwen1.5-0.5B's prefill in bf16 and f32,
+     eval's 512 x 14,951 x 400, called twice for the same bits, with the
+     tile each launch plans; the l1 backward's
+     products alone and as the pair the path asks for, each called twice
+     for the same bits, with the tile height and split each launch plans;
+     flash attention at Qwen1.5-0.5B's prefill in bf16 and f32,
      H2O-Danube-1.8B's GQA and window, a ragged and a decode-like shape in
      f32 and in bf16, with SDPA's own error beside
      the kernel's; the SSD scan at Mamba2-2.7B's prefill, a long
@@ -268,7 +270,7 @@ def _max_err(torch, got, want):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def check_pairwise(torch, dev, gen):
-    from repro_torch.kernels.kge_score.ops import pairwise_kernel
+    from repro_torch.kernels.kge_score.ops import pairwise_kernel, pairwise_l1_plan
     from repro_torch.kernels.kge_score.ref import pairwise_ref
 
     rows = []
@@ -310,7 +312,12 @@ def check_pairwise(torch, dev, gen):
             out = pairwise_kernel(mode, o, n)
             ref = pairwise_ref(mode, o, n)  # at eval's shape it builds 2 x 12 GB
             e, t = _max_err(torch, out, ref)
-            print(f"  pairwise {mode:4s} {shape}: max_abs_err {e:.3e} (tol {t:.3e})")
+            plan = ""
+            if mode == "l1":  # the launch's tile, rows of o x negatives
+                plan = ", plan %dx%d" % ((pairwise_l1_plan(*shape),) * 2)
+                check(torch.equal(out, pairwise_kernel(mode, o, n)),
+                      f"pairwise l1 {shape}: two calls differ")
+            print(f"  pairwise {mode:4s} {shape}: max_abs_err {e:.3e} (tol {t:.3e}){plan}")
             check(out.shape == (shape[0], shape[1], shape[2]) and math.isfinite(e)
                   and e <= t, f"pairwise {mode} {shape} disagrees: {e} > {t}")
             err, tol = max(err, e), max(tol, t)
@@ -318,7 +325,9 @@ def check_pairwise(torch, dev, gen):
                    replaces=TPU_KERNEL["pairwise"], max_abs_err=err, tol=tol,
                    **timed(mode, path, *data[path], 20))
         if mode == "l1":
-            row["other_shapes"] = {"eval": timed(mode, evals, *shapes[evals], 2)}
+            row["plan"] = "%dx%d" % ((pairwise_l1_plan(*path),) * 2)
+            row["other_shapes"] = {"eval": dict(timed(mode, evals, *shapes[evals], 2),
+                                                plan="%dx%d" % ((pairwise_l1_plan(*evals),) * 2))}
             print(f"  pairwise_l1 at eval's shape {evals}: {_fmt(row['other_shapes']['eval'])}")
         rows.append(row)
     return rows

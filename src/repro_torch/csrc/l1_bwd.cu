@@ -66,7 +66,8 @@
 // has a fixed order, so two calls give the same bits.
 //
 // The tile height and S are chosen per call from the card (its SM count and
-// each variant's blocks an SM, read once a device): the plan that gives the
+// each variant's blocks an SM, read once a device) by the cost model of
+// plan.cuh, which the l1 mode of pairwise.cu shares: the plan that gives the
 // busiest SM the least work, in chunks, with a chunk's worth of cost a
 // block for its prologue and combine, and work stretched where the busiest
 // SM holds fewer than 8 warps. l1_bwd_plan reports the choice; PERF.md
@@ -74,6 +75,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "plan.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -87,8 +90,6 @@ constexpr int kMR = 8;            // rows a thread owns
 constexpr int kTileC = 32;        // reduction chunk staged in shared memory
 constexpr int kPairRows = 64;     // tile height of the pair launch
 constexpr int kPairWarps = kPairRows / kMR * kTX / 32;
-constexpr int kFullWarps = 8;     // warps an SM needs to keep issuing
-constexpr int kMaxDevices = 64;
 // the pair launch's per-warp sums of one chunk, [kTileC][kPairWarps][kCols]
 constexpr size_t kRedBytes = sizeof(float) * kTileC * kPairWarps * kCols;
 
@@ -394,28 +395,25 @@ cudaError_t launch(const float* x, const float* y, const float* w, float* out, i
                             dn_part, R, C, D);
 }
 
-// The card's SM count and the blocks an SM holds of each variant, read once
-// a device.
+// The blocks an SM holds of each variant, read once a device.
 struct Card {
-  int sms = 0;
+  bool read = false;
   int blocks[2][2] = {};  // [ROWS == 64][TRANS_W]
   int pair_blocks = 0;
 };
 
 template <int ROWS, bool TRANS_W, bool PAIR = false>
 int blocks_per_sm() {
-  int n = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, l1_bwd_kernel<ROWS, TRANS_W, PAIR>,
-                                                ROWS / kMR * kTX, PAIR ? kRedBytes : 0);
-  return n > 0 ? n : 1;
+  return plan::blocks_per_sm(l1_bwd_kernel<ROWS, TRANS_W, PAIR>, ROWS / kMR * kTX,
+                             PAIR ? kRedBytes : 0);
 }
 
 const Card& card() {
-  static Card cards[kMaxDevices];
+  static Card cards[plan::kMaxDevices];
   int dev = 0;
   cudaGetDevice(&dev);
-  Card& c = cards[dev % kMaxDevices];
-  if (c.sms == 0) {
+  Card& c = cards[dev % plan::kMaxDevices];
+  if (!c.read) {
     cudaFuncSetAttribute(l1_bwd_kernel<kPairRows, false, true>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRedBytes);
     c.blocks[0][0] = blocks_per_sm<32, false>();
@@ -423,57 +421,42 @@ const Card& card() {
     c.blocks[1][0] = blocks_per_sm<64, false>();
     c.blocks[1][1] = blocks_per_sm<64, true>();
     c.pair_blocks = blocks_per_sm<kPairRows, false, true>();
-    int sms = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    c.sms = sms > 0 ? sms : 1;
+    c.read = true;
   }
   return c;
 }
 
-// Work on the busiest SM, in row-chunks, for tiles of h rows split s ways
-// with `resident` blocks an SM.
-double cost(const Card& cd, int G, int R, int C, int D, int h, int s, int resident) {
-  const long long nch = (C + kTileC - 1) / kTileC;
-  const long long tiles = (long long)G * ((D + kCols - 1) / kCols) * ((R + h - 1) / h);
-  const long long per_sm = (tiles * s + cd.sms - 1) / cd.sms;
-  const long long warps = (per_sm < resident ? per_sm : resident) * (h / kMR * kTX / 32);
-  double work = (double)per_sm * ((nch + s - 1) / s + 1) * h;
-  if (warps < kFullWarps) work *= (double)kFullWarps / warps;
-  return work;
+// Tiles of h rows (x kCols columns) over an (R, D) output, G groups.
+long long tiles(int G, int R, int D, int h) {
+  return (long long)G * ((D + kCols - 1) / kCols) * ((R + h - 1) / h);
 }
 
-// Tile height (64, else 32) and split of one launch: the least cost.
-void plan(int G, int R, int C, int D, bool trans, int* rows, int* split) {
+// Tile height (64, else 32) and split of one launch: the least cost
+// (plan.cuh), a tile's work counted in rows.
+void plan_launch(int G, int R, int C, int D, bool trans, int* rows, int* split) {
   const Card& cd = card();
+  const int sms = plan::sm_count();
   const int nch = (C + kTileC - 1) / kTileC;
   double best = -1;
   for (int big = 1; big >= 0; --big) {
-    for (int s = 1; s <= 8 && (s == 1 || s <= nch); s *= 2) {
-      const int h = big ? 64 : 32;
-      const double c = cost(cd, G, R, C, D, h, s, cd.blocks[big][trans]);
-      if (best < 0 || c < best) {
-        best = c;
-        *rows = h;
-        *split = s;
-      }
+    const int h = big ? 64 : 32;
+    double c;
+    const int s = plan::best_split(sms, tiles(G, R, D, h), nch, cd.blocks[big][trans],
+                                   h / kMR * kTX / 32, h, &c);
+    if (best < 0 || c < best) {
+      best = c;
+      *rows = h;
+      *split = s;
     }
   }
 }
 
 // Split of the pair launch (tiles of kPairRows rows of o, K split s ways).
 int plan_pair(int G, int B, int K, int D) {
-  const Card& cd = card();
-  const int nch = (K + kTileC - 1) / kTileC;
-  double best = -1;
-  int split = 1;
-  for (int s = 1; s <= 8 && (s == 1 || s <= nch); s *= 2) {
-    const double c = cost(cd, G, B, K, D, kPairRows, s, cd.pair_blocks);
-    if (best < 0 || c < best) {
-      best = c;
-      split = s;
-    }
-  }
-  return split;
+  double c;
+  return plan::best_split(plan::sm_count(), tiles(G, B, D, kPairRows),
+                          (K + kTileC - 1) / kTileC, card().pair_blocks,
+                          kPairRows / kMR * kTX / 32, kPairRows, &c);
 }
 
 }  // namespace
@@ -482,7 +465,7 @@ int plan_pair(int G, int B, int K, int D) {
 // current device. Returns 0.
 extern "C" int l1_bwd_plan(int G, int R, int C, int D, int trans_w, int* rows,
                            int* split) {
-  plan(G, R, C, D, trans_w != 0, rows, split);
+  plan_launch(G, R, C, D, trans_w != 0, rows, split);
   return 0;
 }
 
@@ -500,7 +483,7 @@ extern "C" int l1_bwd_launch(const float* x, const float* y, const float* w,
                              void* stream) {
   if (G <= 0 || R <= 0 || D <= 0) return 0;
   int rows = 0, split = 0;
-  plan(G, R, C, D, trans_w != 0, &rows, &split);
+  plan_launch(G, R, C, D, trans_w != 0, &rows, &split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (rows == 64) {

@@ -43,6 +43,9 @@ SIGNATURES = {
 }
 # a source's other C functions: symbol -> (argtypes, restype)
 FUNCTIONS = {
+    "pairwise": {
+        "pairwise_l1_plan": ([_I] * 4, _I),
+    },
     "l1_bwd": {
         "l1_bwd_pair_launch": ([*[_P] * 6, *[_I] * 4, _P], _I),
         "l1_bwd_pair_scratch": ([_I] * 4, _LL),

@@ -66,6 +66,13 @@ def pairwise_kernel(mode: str, o: torch.Tensor, negs: torch.Tensor) -> torch.Ten
     return out if o.dim() == 3 else out[0]
 
 
+def pairwise_l1_plan(G: int, B: int, K: int, D: int) -> int:
+    """Tile rows of o that the l1 mode of the pairwise kernel picks on the
+    current CUDA device for a (G, B, D) x (G, K, D) call; a tile is as many
+    negatives wide (64 x 64 wide, 32 x 32 narrow)."""
+    return build.library("pairwise").pairwise_l1_plan(G, B, K, D)
+
+
 def l1_bwd_kernel(o: torch.Tensor, negs: torch.Tensor, g: torch.Tensor,
                   need_do: bool = True, need_dn: bool = True
                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:

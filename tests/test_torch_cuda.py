@@ -7,6 +7,9 @@ only, so it runs on the card's machine without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import json
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +18,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import mha_ref
 from repro_torch.kernels.kge_score.ops import (
-    l1_bwd_kernel, l1_bwd_pair_plan, l1_bwd_plan, pairwise_kernel, pairwise_scores,
+    l1_bwd_kernel, l1_bwd_pair_plan, l1_bwd_plan, pairwise_kernel, pairwise_l1_plan,
+    pairwise_scores,
 )
 from repro_torch.kernels.kge_score.ref import l1_grads_ref, pairwise_ref
 from repro_torch.kernels.sparse_adagrad.ops import dedup_aggregate, fused_sparse_adagrad
@@ -161,6 +165,125 @@ def test_l1_bwd_kernel_split_edges_and_determinism(cuda, C, product, D, scale):
             # fp32 sums of B or K terms in another order: 2e-5 of the largest value
             tol = 2e-5 * max(1.0, float(b.abs().max()))
             assert float((a - b).abs().max()) <= tol
+
+
+# (name, G, B, K, D, scale): the l1 forward around its chunks of 32 (64 x
+# 64 tiles) and 64 columns (32 x 32 tiles) (D 1, 3, 33, 65, 400, 401), B and
+# K on both sides of each tile edge the plan can pick, protocol 2's grouped
+# form, and large inputs
+L1_FWD_CASES = [
+    *[(f"d{D}", 2, 65, 129, D, 1) for D in (1, 3, 33, 65, 400, 401)],
+    *[(f"b{v}", 2, v, 65, 40, 1) for v in (1, 31, 33, 63, 65, 129)],
+    *[(f"k{v}", 2, 65, v, 40, 1) for v in (1, 31, 33, 63, 65, 129)],
+    ("grouped_64x1x2000", 64, 1, 2000, 400, 1),
+    ("x8", 1, 100, 300, 400, 8),
+    ("x1e3", 1, 100, 300, 400, 1e3),
+]
+
+
+def _l1_fwd_inputs(cuda, G, B, K, D, scale, seed):
+    """o and negs with ties: the first half of the negatives are copies of
+    rows of o, and 5% of the entries of each are +0 or -0 (before the copy,
+    so a copied row is identical). Returns (o, n, rows of o copied)."""
+    rng = _rng(seed)
+    o = scale * rng.standard_normal((G, B, D))
+    n = scale * rng.standard_normal((G, K, D))
+    for a in (o, n):
+        a[rng.random(a.shape) < 0.05] = 0.0
+        a[rng.random(a.shape) < 0.05] = -0.0
+    copied = rng.integers(0, B, (K + 1) // 2)
+    n[:, : (K + 1) // 2] = o[:, copied]
+    o, n = (torch.tensor(a, dtype=torch.float32, device=cuda) for a in (o, n))
+    return o, n, copied
+
+
+@pytest.mark.parametrize("case", L1_FWD_CASES, ids=lambda c: c[0])
+def test_pairwise_l1_kernel_edges_and_determinism(cuda, case):
+    """The l1 forward against the plain version at the gate; a negative
+    equal to a row of o scores exactly 0; two calls give the same bits."""
+    _, G, B, K, D, scale = case
+    o, n, copied = _l1_fwd_inputs(cuda, G, B, K, D, scale, 26)
+    before = build.LAUNCHES["pairwise_l1"]
+    out = pairwise_kernel("l1", o, n)
+    again = pairwise_kernel("l1", o, n)
+    ref = pairwise_ref("l1", o, n)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["pairwise_l1"] == before + 2
+    assert out.shape == ref.shape
+    assert torch.equal(out, again)
+    ties = out[:, torch.as_tensor(copied, device=cuda), torch.arange(len(copied), device=cuda)]
+    assert torch.equal(ties, torch.zeros_like(ties))
+    # fp32 sums of D terms in another order: 2e-5 of the largest value
+    tol = 2e-5 * max(1.0, float(ref.abs().max()))
+    assert float((out - ref).abs().max()) <= tol
+
+
+def test_pairwise_l1_kernel_unaligned_and_non_finite(cuda):
+    """Operands 4 bytes off a 16-byte boundary (the kernel's 4-byte copies
+    at D = 400), and rows holding a NaN, +inf and -inf: NaN and inf land
+    where the plain version puts them (inf - inf is NaN), the rest within
+    the gate."""
+    G, B, K, D = 1, 70, 90, 400
+    rng = _rng(27)
+    bo = torch.tensor(rng.standard_normal(B * D + 1), dtype=torch.float32, device=cuda)
+    bn = torch.tensor(rng.standard_normal(K * D + 1), dtype=torch.float32, device=cuda)
+    o, n = bo[1:].view(B, D), bn[1:].view(K, D)
+    assert o.data_ptr() % 16 == 4 and n.data_ptr() % 16 == 4
+    o[3, 5] = float("nan")
+    o[4, 0] = float("-inf")
+    o[6, 0] = float("inf")
+    n[2, 0] = float("inf")
+    out = pairwise_kernel("l1", o, n)
+    ref = pairwise_ref("l1", o, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out.isnan(), ref.isnan()) and bool(ref.isnan().any())
+    assert torch.equal(out.isinf(), ref.isinf()) and bool(ref.isinf().any())
+    assert torch.equal(out[ref.isinf()], ref[ref.isinf()])
+    fin = ref.isfinite()
+    tol = 2e-5 * max(1.0, float(ref[fin].abs().max()))
+    assert float((out[fin] - ref[fin]).abs().max()) <= tol
+
+
+def _launch_shape(cuda, tmp_path, fn, name):
+    """(template arguments, grid) of the launch of kernel ``name`` that
+    ``fn`` makes, from a torch.profiler trace (a trace now and then holds no
+    device event: taken again, up to three times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        trace = tmp_path / f"trace{attempt}.json"
+        prof.export_chrome_trace(str(trace))
+        kern = [e for e in json.loads(trace.read_text())["traceEvents"]
+                if e.get("cat") == "kernel" and name in e.get("name", "")]
+        if kern:
+            assert len(kern) == 1
+            targs = tuple(int(x) for x in re.search(name + r"<([^>]*)>", kern[0]["name"])
+                          .group(1).split(","))
+            return targs, tuple(kern[0]["args"]["grid"])
+    raise AssertionError(f"no {name} launch in three traces")
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 256, 400), (2, 1000, 250, 300),
+                                   (1, 512, 14951, 400)],
+                         ids=["path", "ragged", "eval"])
+def test_pairwise_l1_launch_takes_its_plan(cuda, tmp_path, shape):
+    """At the training path's, a ragged and eval's shapes the launch runs
+    the tile that pairwise_l1_plan reports: the kernel's micro-tile (MR x MC
+    sums a thread, 8 x 16 threads, so 8 MR rows of o and 16 MC negatives a
+    tile, as many as rows) and its grid, one block a tile."""
+    G, B, K, D = shape
+    o = torch.randn(G, B, D, device=cuda)
+    n = torch.randn(G, K, D, device=cuda)
+    rows = pairwise_l1_plan(G, B, K, D)
+    (mr, mc, _, vec), grid = _launch_shape(cuda, tmp_path,
+                                           lambda: pairwise_kernel("l1", o, n),
+                                           "pairwise_l1_kernel")
+    assert (8 * mr, 16 * mc, vec) == (rows, rows, 4)
+    assert grid == (-(-K // rows), -(-B // rows), G)
 
 
 def test_eval_ranks_on_card_match_cpu(cuda):
