@@ -71,6 +71,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      max|logit|) of the kernel-route prefill's (the recurrence against the
      kernel, which share no code); decode tokens/s with the card
      synchronised.
+ 12. Hogwild: ``python -m repro_torch.launch.train --dataset fb15k --model
+     transe_l2 --trainers 4 --samplers 4 --steps 200 --metrics-out
+     build/chip_smoke_hogwild/m.jsonl --trace-out build/chip_smoke_hogwild/t.json``
+     in process: the final state's step and both step counters 200, the
+     loss falls, exactly 400 launches each of pairwise_l2sq, dedup_aggregate
+     and fused_update (T5 off, no flush), both files valid under the
+     port's validators with tracks trainer-0..3 and the runtime's spans;
+     TransE_l1 with ``--trainers 2 --steps 50``: exactly 100 launches each
+     of pairwise_l1 and l1_bwd_pair, a finite falling loss; on the card,
+     ``grad_step`` + ``apply_step`` equal ``train_step`` bit for bit
+     (TransE_l2, TransE_l1) and a stale apply keeps the rows only the
+     earlier apply touched; 1, 2 and 4 trainers (as many samplers, T5 off)
+     for 240 steps each: the means of the losses of steps 171-200 within
+     15% between 1 and 4 trainers, triplets/s over steps 51-200 and the
+     card's busy share from a torch.profiler window in steps 211-235.
 
 Launch counts are set to 0 just before each path and read just after it.
 
@@ -112,6 +127,13 @@ EVAL_SHAPE = (1, 512, 14951, 400)
 L1_BWD_SHAPES = (PATH_SHAPE, RAGGED_SHAPE, (3, 65, 129, 33), (1, 256, 1024, 400),
                  (1, 777, 300, 401))
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+HOGWILD_DIR = ROOT / "build" / "chip_smoke_hogwild"
+HOGWILD_STEPS = 200
+HOGWILD_L1_STEPS = 50
+HOGWILD_TIMED = (50, 200)  # triplets/s over steps 51-200
+HOGWILD_TRACED = (210, 235)  # the profiler window, on trainer 0's steps
+HOGWILD_SCALING_STEPS = 240
+HOGWILD_TOL = 0.15  # 1 vs 4 trainers, last-30 loss means: JAX's rule
 # flash attention, (B, H, Hkv, T, S, dh, window, q_offset, dtype); the first
 # is what the Qwen prefill path launches
 FLASH_SHAPES = {
@@ -1338,6 +1360,239 @@ def run_mamba_prefill(torch, np, dev):
                                build_prefill_step(model32))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: Hogwild trainers on one card
+# ---------------------------------------------------------------------------
+def hogwild_cli(torch, np, model, n_trainers, steps, extra=(), hooks=()):
+    """``train.main`` with ``--trainers n_trainers --samplers n_trainers``,
+    launch counts set to 0 just before and read just after. Returns
+    (launches, cfg, state, losses in step order, wall s incl. graph)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import engine, train
+
+    metrics = engine.MetricsHook(("loss",))
+    build.reset_launches()
+    t0 = time.perf_counter()
+    cfg, state = train.main(
+        ["--dataset", "fb15k", "--model", model, "--steps", str(steps),
+         "--trainers", str(n_trainers), "--samplers", str(n_trainers),
+         "--log-every", "50", *extra], hooks=[metrics, *hooks])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    loss = np.asarray(metrics.history["loss"])
+    check(state.step == steps and len(loss) == steps,
+          f"{model} x{n_trainers}: state at step {state.step}, {len(loss)} hook "
+          f"steps, not {steps}")
+    check(np.isfinite(loss).all(), f"{model} x{n_trainers}: non-finite loss")
+    check(bool(torch.isfinite(state.entity).all()), f"{model} x{n_trainers}: "
+          "tables not finite")
+    return launches, cfg, state, loss, wall
+
+
+def check_hogwild_files(torch, launches, cfg, state, loss, metrics_path, trace_path):
+    """Phase 12's checks on the 4-trainer TransE_l2 run and its files."""
+    from repro_torch.common import telemetry
+
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    print(f"  loss: first-10 mean {first:.4f} -> last-10 mean {last:.4f}; "
+          f"launches {launches}")
+    check(last < first, f"hogwild loss did not fall: {first} -> {last}")
+    check(state.pend_ids is None, "hogwild ran with T5 on")
+    for name in ("pairwise_l2sq", "dedup_aggregate", "fused_update"):
+        check(launches[name] == 2 * HOGWILD_STEPS,
+              f"{name} launched {launches[name]} times, not {2 * HOGWILD_STEPS}")
+    n_lines = telemetry.validate_metrics_jsonl(
+        str(metrics_path), require=("engine/steps", "runtime/steps"))
+    n_events = telemetry.validate_trace(str(trace_path))
+    snap = json.loads(metrics_path.read_text().splitlines()[-1])
+    counters, hists = snap["counters"], snap["hists"]
+    print(f"  {metrics_path.name}: {n_lines} snapshots, final counters {counters}, "
+          f"staleness {hists.get('runtime/staleness')}")
+    check(counters["runtime/steps"] == counters["engine/steps"] == HOGWILD_STEPS,
+          f"step counters {counters.get('runtime/steps')} / "
+          f"{counters.get('engine/steps')}, not {HOGWILD_STEPS}")
+    doc = json.loads(trace_path.read_text())
+    tracks = {e["args"]["name"] for e in doc["traceEvents"] if e.get("ph") == "M"}
+    spans = {}  # name -> [count, total us]
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X":
+            c = spans.setdefault(e["name"], [0, 0.0])
+            c[0] += 1
+            c[1] += e["dur"]
+    span_us = {name: round(total / n, 1) for name, (n, total) in spans.items()}
+    print(f"  {trace_path.name}: {n_events} events, tracks {sorted(tracks)}; "
+          f"spans (count, mean us on the host clock) "
+          f"{ {name: (n, span_us[name]) for name, (n, _) in spans.items()} }")
+    check({f"trainer-{t}" for t in range(4)} <= tracks,
+          f"trace lacks a trainer track: {sorted(tracks)}")
+    check({"runtime/grad", "runtime/apply", "runtime/wait_batch"} <= set(spans),
+          f"trace lacks a runtime span: {sorted(spans)}")
+    return dict(loss_first10=first, loss_last10=last, snapshots=n_lines,
+                trace_events=n_events, stale_steps=counters.get("runtime/stale_steps", 0.0),
+                staleness=hists.get("runtime/staleness"), span_mean_us=span_us)
+
+
+def check_two_phase(torch, np, dev, kg):
+    """On the card, from the same tables and batches with T5 off:
+    ``grad_step`` + ``apply_step`` against ``train_step`` bit for bit
+    (TransE_l2, TransE_l1); then the staleness contract (JAX's
+    tests/test_runtime.py): A and B read the same tables, A applies, B's
+    stale gradient applies onto A's result; rows only A touched keep A's
+    update, rows only B touched move."""
+    from repro_torch.core import kge_model as K
+    from repro_torch.core.sampling import JointSampler
+
+    for model in ("transe_l2", "transe_l1"):
+        cfg = fb15k_config(kg, model)
+        sampler = JointSampler(kg.train, cfg.n_entities, cfg, np.random.default_rng(2))
+        one = K.init_state(cfg, torch.Generator().manual_seed(2), device=dev)
+        two = K.state_from_arrays(cfg, K.state_to_arrays(one), device=dev)
+        grad_fn, apply_fn = K.make_hogwild_step(cfg)
+        same_loss = True
+        for _ in range(3):
+            batch = K.batch_to_device(sampler.sample(), dev)
+            one, m1 = K.train_step(cfg, one, batch)
+            grads, m2 = grad_fn(two, batch)
+            two = apply_fn(two, batch, grads)
+            same_loss &= bool(torch.equal(m1["loss"], m2["loss"]))
+        torch.cuda.synchronize()
+        same = {name: bool(torch.equal(getattr(one, name), getattr(two, name)))
+                for name in ("entity", "ent_gsq", "r_emb", "rel_gsq")}
+        print(f"  {model}: grad_step + apply_step vs train_step, 3 steps: losses "
+              f"equal {same_loss}, tables bit for bit {same}")
+        check(same_loss and all(same.values()) and one.step == two.step == 3,
+              f"{model}: the two-phase step differs from train_step")
+
+    cfg = fb15k_config(kg, "transe_l2")
+    sampler = JointSampler(kg.train, cfg.n_entities, cfg, np.random.default_rng(3))
+    st = K.init_state(cfg, torch.Generator().manual_seed(3), device=dev)
+    batch_a = K.batch_to_device(sampler.sample(), dev)
+    batch_b = K.batch_to_device(sampler.sample(), dev)
+    grads_a, _ = K.grad_step(cfg, st, batch_a)
+    grads_b, _ = K.grad_step(cfg, st, batch_b)  # stale: A's apply comes first
+    t0 = st.entity.clone()
+    st = K.apply_step(cfg, st, batch_a, grads_a)
+    t1 = st.entity.clone()
+    st = K.apply_step(cfg, st, batch_b, grads_b)
+    ws_a = K.dense_step_batch(batch_a)["ent_ids"].unique()
+    ws_b = K.dense_step_batch(batch_b)["ent_ids"].unique()
+    only_a = ws_a[~torch.isin(ws_a, ws_b)]
+    only_b = ws_b[~torch.isin(ws_b, ws_a)]
+    kept = bool(torch.equal(st.entity[only_a], t1[only_a]))
+    a_moved = bool((t1[only_a] != t0[only_a]).any(1).all())
+    b_moved = bool((st.entity[only_b] != t1[only_b]).any(1).all())
+    print(f"  stale apply: {only_a.numel()} rows only A touched keep A's update "
+          f"{kept} (all moved by A {a_moved}); {only_b.numel()} rows only B "
+          f"touched all moved {b_moved}; step {st.step}")
+    check(only_a.numel() > 0 and only_b.numel() > 0 and kept and a_moved and b_moved
+          and st.step == 2, "the staleness contract does not hold on the card")
+
+
+def hogwild_scaling(torch, np, n_trainers):
+    """``n_trainers`` trainers and samplers, T5 off, HOGWILD_SCALING_STEPS
+    steps: triplets/s over steps 51-200 (host clock between synchronises),
+    then the card's busy share in a torch.profiler window (CUDA activity)
+    opened and closed on trainer 0's thread, the caller's, at its first
+    steps past 210 and 235. Returns (losses, summary)."""
+    import threading
+
+    from repro_torch.launch import engine
+
+    class Timed(engine.Hook):
+        def __init__(self):
+            self.t = {}
+            self.prof = self.window = None
+
+        def on_step(self, i, state, metrics, stats):
+            if i in HOGWILD_TIMED:
+                torch.cuda.synchronize()
+                self.t[i] = time.perf_counter()
+            if threading.current_thread() is not threading.main_thread():
+                return
+            a, b = HOGWILD_TRACED
+            if self.prof is None and i > a:
+                from torch.profiler import ProfilerActivity, profile
+
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.start()
+                self.window = [i, None, time.perf_counter(), None]
+            elif self.window is not None and self.window[1] is None and i > b:
+                torch.cuda.synchronize()
+                self.window[1], self.window[3] = i, time.perf_counter()
+                self.prof.stop()
+
+    timed = Timed()
+    launches, cfg, state, loss, wall = hogwild_cli(
+        torch, np, "transe_l2", n_trainers, HOGWILD_SCALING_STEPS,
+        ["--no-overlap"], hooks=[timed])
+    a, b = HOGWILD_TIMED
+    step_ms = (timed.t[b] - timed.t[a]) / (b - a) * 1e3
+    check(timed.window is not None and timed.window[1] is not None,
+          "the profiler window did not close")
+    i0, i1, w0, w1 = timed.window
+    kern = [e for e in timed.prof.key_averages() if _self_device_us(e) > 0]
+    dev_ms = sum(_self_device_us(e) for e in kern) / 1e3
+    window_ms = (w1 - w0) * 1e3
+    busy = dev_ms / window_ms
+    rate = cfg.batch_size / step_ms * 1e3
+    print(f"  {n_trainers} trainer(s), {n_trainers} sampler(s): {step_ms:.4f} ms a "
+          f"step over steps {a + 1}..{b}, {rate:.0f} triplets/s; traced steps "
+          f"{i0}..{i1}: device {dev_ms / (i1 - i0) * 1e3:.1f} us a step, busy "
+          f"{busy:.1%} of {window_ms:.1f} ms; whole run {wall:.1f} s; launches "
+          f"pairwise_l2sq {launches['pairwise_l2sq']}, fused_update "
+          f"{launches['fused_update']}")
+    check(launches["pairwise_l2sq"] == 2 * HOGWILD_SCALING_STEPS,
+          f"pairwise_l2sq launched {launches['pairwise_l2sq']} times")
+    return loss, dict(step_ms=step_ms, triplets_per_s=rate, device_busy=busy,
+                      device_us_per_step=dev_ms / (i1 - i0) * 1e3,
+                      traced_steps=[i0, i1], whole_run_s=wall)
+
+
+def run_hogwild(torch, np, dev, kg):
+    """Phase 12. Returns ({run: launches}, summary)."""
+    shutil.rmtree(HOGWILD_DIR, ignore_errors=True)
+    HOGWILD_DIR.mkdir(parents=True)
+    m, t = HOGWILD_DIR / "m.jsonl", HOGWILD_DIR / "t.json"
+    print(f"  4 trainers, 4 samplers, TransE_l2, {HOGWILD_STEPS} steps, "
+          f"--metrics-out {m.relative_to(ROOT)} --trace-out {t.relative_to(ROOT)}")
+    l2_launches, cfg, state, loss, wall = hogwild_cli(
+        torch, np, "transe_l2", 4, HOGWILD_STEPS,
+        ["--metrics-out", str(m), "--trace-out", str(t)])
+    summary = dict(transe_l2_x4=check_hogwild_files(torch, l2_launches, cfg, state,
+                                                    loss, m, t))
+    summary["transe_l2_x4"]["whole_run_s"] = wall
+
+    print(f"  2 trainers, 2 samplers, TransE_l1, {HOGWILD_L1_STEPS} steps")
+    l1_launches, _, _, loss, _ = hogwild_cli(torch, np, "transe_l1", 2, HOGWILD_L1_STEPS)
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    print(f"  loss: first-10 mean {first:.4f} -> last-10 mean {last:.4f}; launches "
+          f"{l1_launches}")
+    check(last < first, f"hogwild TransE_l1 loss did not fall: {first} -> {last}")
+    for name in ("pairwise_l1", "l1_bwd_pair"):
+        check(l1_launches[name] == 2 * HOGWILD_L1_STEPS,
+              f"{name} launched {l1_launches[name]} times, not {2 * HOGWILD_L1_STEPS}")
+    summary["transe_l1_x2"] = dict(loss_first10=first, loss_last10=last)
+
+    check_two_phase(torch, np, dev, kg)
+
+    losses, scaling = {}, {}
+    for n in (1, 2, 4):
+        losses[n], scaling[n] = hogwild_scaling(torch, np, n)
+    a, b = HOGWILD_STEPS - 30, HOGWILD_STEPS
+    base, hog = float(losses[1][a:b].mean()), float(losses[4][a:b].mean())
+    gap = abs(hog - base) / base
+    print(f"  convergence: mean loss of steps {a + 1}..{b}, 1 trainer {base:.4f}, "
+          f"4 trainers {hog:.4f}: {gap:.1%} apart (limit {HOGWILD_TOL:.0%}); "
+          f"triplets/s x1 {scaling[1]['triplets_per_s']:.0f}, x2 "
+          f"{scaling[2]['triplets_per_s']:.0f}, x4 {scaling[4]['triplets_per_s']:.0f}")
+    check(gap < HOGWILD_TOL, f"4 trainers end {gap:.1%} from 1 trainer's loss")
+    summary.update(scaling={f"x{n}": v for n, v in scaling.items()},
+                   convergence=dict(loss_1=base, loss_4=hog, gap=gap))
+    return {"hogwild_transe_l2": l2_launches, "hogwild_transe_l1": l1_launches}, summary
+
+
 def main() -> int:
     import torch
 
@@ -1436,10 +1691,14 @@ def main() -> int:
                                                "ssd_scan", reuse, scaled_f32=True)
     del reuse
 
+    print("== 12. Hogwild: python -m repro_torch.launch.train --dataset fb15k "
+          "--trainers 4 --samplers 4 --metrics-out ... --trace-out ...")
+    hog_launches, hog_path = run_hogwild(torch, np, dev, kg)
+
     launches_of = {"transe_l2": l2_launches, "transe_l1": l1_launches,
                    "distmult": dm_launches, "qwen_prefill": pre_launches,
                    "qwen_serve": serve_launches, "mamba2_prefill": m_pre_launches,
-                   "mamba2_serve": m_serve_launches}
+                   "mamba2_serve": m_serve_launches, **hog_launches}
     kernels = []
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches_of.items()}
@@ -1462,7 +1721,7 @@ def main() -> int:
     print(json.dumps({"paths": {"transe_l2": l2_path, "transe_l1": l1_path,
                                 "distmult": dm_path, "qwen_prefill": pre_path, "qwen_serve": serve_path,
                                 "mamba2_prefill": m_pre_path,
-                                "mamba2_serve": m_serve_path}}))
+                                "mamba2_serve": m_serve_path, "hogwild": hog_path}}))
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

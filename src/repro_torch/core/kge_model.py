@@ -1,9 +1,10 @@
-"""Single-machine KGE training (the paper's many-core path, minus Hogwild).
+"""Single-machine KGE training (the paper's many-core path).
 
 A port of the JAX package's core/kge_model.py. It adapts the ``KGEState``
 container and the global-id batches of the single-machine samplers onto
 ``DenseStore`` and core/step.py. The tables live on ``state``'s device and
-are updated in place by every step.
+are updated in place by every step. ``grad_step`` / ``apply_step`` split the
+step for the Hogwild trainers (launch/runtime.py).
 
 Weights cross between the packages as numpy arrays under the JAX
 ``KGEState``'s field names: ``state_from_arrays`` / ``state_to_arrays``.
@@ -12,6 +13,7 @@ Weights cross between the packages as numpy arrays under the JAX
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -20,7 +22,7 @@ import torch
 from repro_torch.common.config import KGEConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.core.sampling import MODES
-from repro_torch.core.step import store_train_step
+from repro_torch.core.step import store_apply_grads, store_grads, store_train_step
 from repro_torch.embeddings.store import DenseStore
 from repro_torch.embeddings.table import emb_init_scale
 
@@ -235,6 +237,41 @@ def train_step(
     stores, metrics = store_train_step(
         cfg, stores_from_state(cfg, state), dense_step_batch(batch))
     return state_from_stores(state, stores), metrics
+
+
+# --------------------------------------------------------------------------
+# Hogwild two-phase step (paper §3.1, launch/runtime.py): gradients computed
+# against a possibly STALE view of the tables, applied to the LATEST ones.
+# --------------------------------------------------------------------------
+def grad_step(cfg: KGEConfig, state: KGEState, batch):
+    """Phases 2–3 of the step against ``state``: ``(grads, metrics)``.
+
+    The gather copies the rows, so an apply dispatched after it (another
+    trainer's) does not change the gradient. Multi-trainer requires
+    immediate updates (``overlap=False``): Hogwild already overlaps update
+    with compute, and a deferred pending buffer is single-writer.
+    """
+    if state.pend_ids is not None:
+        raise ValueError("Hogwild trainers require overlap off: "
+                         "init_state(..., overlap=False)")
+    return store_grads(cfg, stores_from_state(cfg, state), dense_step_batch(batch))
+
+
+def apply_step(cfg: KGEConfig, state: KGEState, batch, grads) -> KGEState:
+    """Phase 4: apply ``grads`` (from ``grad_step``) to ``state``'s tables in
+    place; returns the state with its step advanced.
+
+    In the runtime this runs inside ``StoreSlot.swap``, so it lands on the
+    latest tables and no trainer's update is lost.
+    """
+    stores = store_apply_grads(stores_from_state(cfg, state),
+                               dense_step_batch(batch), grads)
+    return state_from_stores(state, stores)
+
+
+def make_hogwild_step(cfg: KGEConfig):
+    """(grad_fn, apply_fn) pair for ``train_loop(..., split_step=...)``."""
+    return (functools.partial(grad_step, cfg), functools.partial(apply_step, cfg))
 
 
 def batch_to_device(batch, device) -> Dict[str, torch.Tensor]:

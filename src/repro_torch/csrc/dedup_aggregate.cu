@@ -49,6 +49,8 @@
 
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -59,6 +61,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStage = 256;                // ids compared a step, 8 a lane
 constexpr int kList = 144;                 // slots a warp lists
 constexpr int kMaxWarpN = 12288;           // ids staged: 48 KB
+constexpr int kMaxDevices = 64;            // slots of the per-device cache
 
 __device__ __forceinline__ void zero_row(float* dst, int D, int lane) {
   for (int c = lane; c < D; c += 32) dst[c] = 0.f;
@@ -371,16 +374,19 @@ extern "C" int dedup_aggregate_launch(const int* ids, const float* grads,
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= kMaxWarpN) {
-    static bool sized[64] = {};  // the shared-memory limit, once a device
+    // the shared-memory limit, set once a device; several host threads may
+    // launch at once (ctypes releases the GIL), hence std::call_once
+    static std::once_flag once[kMaxDevices];
+    static cudaError_t sized[kMaxDevices];
     int dev = 0;
     cudaGetDevice(&dev);
-    if (dev < 64 && !sized[dev]) {
-      const cudaError_t err = cudaFuncSetAttribute(
+    const int slot = dev % kMaxDevices;
+    std::call_once(once[slot], [slot] {
+      sized[slot] = cudaFuncSetAttribute(
           dedup_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(sizeof(int) * kMaxWarpN));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      sized[dev] = true;
-    }
+    });
+    if (sized[slot] != cudaSuccess) return static_cast<int>(sized[slot]);
     const size_t staged = sizeof(int) * ((n + kStage - 1) / kStage * kStage);
     dedup_warp_kernel<<<(n + kWarps - 1) / kWarps, kThreads, staged, s>>>(
         ids, grads, uid, agg, n, D);

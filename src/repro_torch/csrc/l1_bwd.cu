@@ -397,7 +397,6 @@ cudaError_t launch(const float* x, const float* y, const float* w, float* out, i
 
 // The blocks an SM holds of each variant, read once a device.
 struct Card {
-  bool read = false;
   int blocks[2][2] = {};  // [ROWS == 64][TRANS_W]
   int pair_blocks = 0;
 };
@@ -409,11 +408,10 @@ int blocks_per_sm() {
 }
 
 const Card& card() {
+  static std::once_flag once[plan::kMaxDevices];
   static Card cards[plan::kMaxDevices];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  Card& c = cards[dev % plan::kMaxDevices];
-  if (!c.read) {
+  const int slot = plan::once_per_device(once, [](int, int s) {
+    Card& c = cards[s];
     cudaFuncSetAttribute(l1_bwd_kernel<kPairRows, false, true>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRedBytes);
     c.blocks[0][0] = blocks_per_sm<32, false>();
@@ -421,9 +419,8 @@ const Card& card() {
     c.blocks[1][0] = blocks_per_sm<64, false>();
     c.blocks[1][1] = blocks_per_sm<64, true>();
     c.pair_blocks = blocks_per_sm<kPairRows, false, true>();
-    c.read = true;
-  }
-  return c;
+  });
+  return cards[slot];
 }
 
 // Tiles of h rows (x kCols columns) over an (R, D) output, G groups.

@@ -405,19 +405,17 @@ void l1_allow_smem() {
 // The blocks an SM holds of each tile shape, read once a device (which also
 // lifts each variant's dynamic shared-memory limit).
 const int* l1_blocks() {
+  static std::once_flag once[plan::kMaxDevices];
   static int blocks[plan::kMaxDevices][2];  // [device][wide]
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int* b = blocks[dev % plan::kMaxDevices];
-  if (b[1] == 0) {
+  const int slot = plan::once_per_device(once, [](int, int s) {
     l1_allow_smem<8, 4, kWideBK>();
     l1_allow_smem<4, 2, kNarrowBK>();
-    b[0] = plan::blocks_per_sm(pairwise_l1_kernel<4, 2, kNarrowBK, 4>, kL1Threads,
-                               sizeof(NarrowStage));
-    b[1] = plan::blocks_per_sm(pairwise_l1_kernel<8, 4, kWideBK, 4>, kL1Threads,
-                               sizeof(WideStage));
-  }
-  return b;
+    blocks[s][0] = plan::blocks_per_sm(pairwise_l1_kernel<4, 2, kNarrowBK, 4>,
+                                       kL1Threads, sizeof(NarrowStage));
+    blocks[s][1] = plan::blocks_per_sm(pairwise_l1_kernel<8, 4, kWideBK, 4>,
+                                       kL1Threads, sizeof(WideStage));
+  });
+  return blocks[slot];
 }
 
 // Tile rows (64: wide, 32: narrow): the least cost (plan.cuh, unsplit), a

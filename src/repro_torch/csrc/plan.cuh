@@ -14,24 +14,37 @@
 
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace plan {
 
 constexpr int kFullWarps = 8;  // warps an SM needs to keep issuing
 constexpr int kMaxDevices = 64;
 constexpr int kMaxSplit = 8;   // the largest portable cluster
 
-// The current device's SM count, read once a device.
-inline int sm_count() {
-  static int sms[kMaxDevices];
+// Per-device host caches. Several host threads may launch at once (ctypes
+// releases the GIL), so each cache fills its slot under std::call_once: one
+// thread fills it, the others wait, and every later call reads the finished
+// slot. `fill(dev, slot)` runs once for the calling thread's current device.
+template <class Fill>
+int once_per_device(std::once_flag (&once)[kMaxDevices], Fill fill) {
   int dev = 0;
   cudaGetDevice(&dev);
-  int& n = sms[dev % kMaxDevices];
-  if (n == 0) {
+  const int slot = dev % kMaxDevices;
+  std::call_once(once[slot], fill, dev, slot);
+  return slot;
+}
+
+// The current device's SM count, read once a device.
+inline int sm_count() {
+  static std::once_flag once[kMaxDevices];
+  static int sms[kMaxDevices];
+  const int slot = once_per_device(once, [](int dev, int s) {
     int v = 0;
     cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    n = v > 0 ? v : 1;
-  }
-  return n;
+    sms[s] = v > 0 ? v : 1;
+  });
+  return sms[slot];
 }
 
 // Blocks of `kernel` an SM holds at `threads` threads and `smem` bytes of

@@ -1,14 +1,28 @@
-"""Host data pipeline: one sampler thread feeding a bounded batch queue.
+"""Host data pipeline: N sampler workers feeding one bounded batch queue.
 
 DGL-KE offloads sampling to CPU workers while accelerators compute (paper
-§3.3). ``Prefetcher`` is the single-producer case of the JAX package's
-data/pipeline.py ``WorkerPool``: a daemon thread runs ``sample_fn`` ahead
-of the trainer, so the host builds batch t+1 while the card computes
-batch t (PyTorch launches CUDA work asynchronously).
+§3.3) and runs several sampler/trainer processes per machine (§3.1). A port
+of the JAX package's data/pipeline.py: ``WorkerPool`` runs N producer
+threads over the numpy samplers; PyTorch launches CUDA work
+asynchronously, so the card computes step t while the host builds (and
+copies) batches t+1, t+2, ...
 
-Backpressure contract, as in the reference: the queue is bounded; a sampled
-batch is never discarded — when the queue is full the producer holds it
-and retries. ``close()`` drains until the thread exits.
+Backpressure contract, as in the reference: the queue is bounded
+(``depth``). A sampled batch is never discarded — when the queue is full
+the producer holds the batch and retries the put, so a slow consumer costs
+producer waiting, not wasted sampling work. ``stats()`` exposes the three
+backpressure signals (queue depth, cumulative producer wait, cumulative
+consumer wait), mirrored into the telemetry registry (``pipeline/*``) when
+it is enabled; each ``sample_fn`` call is a ``pipeline/sample`` span on its
+worker's own trace track.
+
+Divergence from the reference: a ``sample_fn`` exception is not lost. The
+worker hands it to the consumers and exits; the ``get()`` that reaches it,
+and every ``get()`` after it, raises ``RuntimeError`` from it. In the JAX
+package the worker thread dies and its consumer waits for a batch that
+never comes.
+
+``Prefetcher`` is the ``n_workers=1`` case.
 """
 
 from __future__ import annotations
@@ -17,36 +31,65 @@ import queue
 import threading
 import time
 import warnings
-from typing import Callable
+from typing import Callable, Iterator, List, Optional
+
+import numpy as np
 
 from repro_torch.common import telemetry
 
 _NOTHING = object()  # "no batch held" sentinel for the producer retry loop
 
+# telemetry counter names keyed by the internal wait attribute
+_WAIT_METRIC = {"_producer_wait": "pipeline/producer_wait_s",
+                "_consumer_wait": "pipeline/consumer_wait_s"}
+
 
 class _Failure:
-    """A ``sample_fn`` exception, handed to the consumer to re-raise."""
+    """A ``sample_fn`` exception, handed to the consumers to re-raise."""
 
     def __init__(self, exc: Exception):
         self.exc = exc
 
 
-class Prefetcher:
-    """``sample_fn`` on a producer thread -> bounded queue of ``DEPTH``.
+def worker_rngs(seed: int, n: int) -> List[np.random.Generator]:
+    """``n`` independent, non-overlapping numpy Generators for ``n`` workers:
+    ``SeedSequence(seed).spawn(n)``, the same streams as the JAX package's."""
+    return [np.random.default_rng(s) for s in np.random.SeedSequence(seed).spawn(n)]
 
-    Consume with ``get()`` or iteration; call ``close()`` when done.
+
+class WorkerPool:
+    """N producer workers -> one bounded queue with backpressure stats.
+
+    ``factory(worker_id)`` builds each worker's zero-arg sample callable.
+    Give every worker its own RNG (see ``worker_rngs``): workers run
+    concurrently and must not share a numpy Generator.
+
+    Consume with ``get()`` / iteration; several consumer (trainer) threads
+    may ``get()`` concurrently. ``close()`` drains until every worker thread
+    has exited.
     """
 
-    DEPTH = 2  # batches sampled ahead of the trainer
-    CLOSE_TIMEOUT_S = 2.0
-
-    def __init__(self, sample_fn: Callable[[], object]):
-        self.q: queue.Queue = queue.Queue(maxsize=self.DEPTH)
+    def __init__(self, factory: Callable[[int], Callable[[], object]],
+                 n_workers: int = 1, depth: int = 2):
+        if n_workers < 1:
+            raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._peeked = _NOTHING  # one-item lookahead cell (see peek())
+        self._failure: Optional[_Failure] = None  # the first one a get() met
         self._stop = threading.Event()
-        self.thread = threading.Thread(target=self._run, args=(sample_fn,),
-                                       daemon=True, name="sampler-0")
-        self.thread.start()
+        self._stat_lock = threading.Lock()
+        self._produced = 0
+        self._producer_wait = 0.0
+        self._consumer_wait = 0.0
+        self.threads: List[threading.Thread] = []
+        for wid in range(n_workers):
+            th = threading.Thread(target=self._run, args=(factory(wid),),
+                                  daemon=True, name=f"sampler-{wid}")
+            self.threads.append(th)
+        for th in self.threads:
+            th.start()
 
+    # ---- producer side -----------------------------------------------------
     def _run(self, sample_fn: Callable[[], object]):
         held = _NOTHING
         while not self._stop.is_set():
@@ -57,42 +100,119 @@ class Prefetcher:
                 except Exception as exc:  # reported by get(), not lost here
                     held = _Failure(exc)
             try:
-                self.q.put(held, timeout=0.2)
+                # fast path: space available, no wait accounted
+                self.q.put_nowait(held)
             except queue.Full:
-                continue  # still holding `held`; check stop, retry
+                # backpressure: hold the batch and retry — re-running
+                # sample_fn here would silently discard sampled work
+                t0 = time.perf_counter()
+                try:
+                    self.q.put(held, timeout=0.2)
+                except queue.Full:
+                    self._add_wait("_producer_wait", t0)
+                    continue  # still holding `held`; check stop, retry
+                self._add_wait("_producer_wait", t0)
             if isinstance(held, _Failure):
                 return
             held = _NOTHING
+            with self._stat_lock:
+                self._produced += 1
             telemetry.inc("pipeline/produced")
+            telemetry.gauge("pipeline/queue_depth", self.q.qsize())
 
-    def get(self):
-        """Next batch; re-raises an exception of ``sample_fn``."""
-        item = self.q.get()
+    def _add_wait(self, attr: str, t0: float):
+        dt = time.perf_counter() - t0
+        with self._stat_lock:
+            setattr(self, attr, getattr(self, attr) + dt)
+        telemetry.inc(_WAIT_METRIC[attr], dt)
+
+    # ---- consumer side -----------------------------------------------------
+    def get(self, timeout: Optional[float] = None):
+        """Next batch; blocks (``queue.Empty`` on timeout). Re-raises a
+        worker's ``sample_fn`` exception. Thread-safe unless ``peek()`` is in
+        use (see there)."""
+        if self._failure is not None:
+            self._raise(self._failure)
+        if self._peeked is not _NOTHING:
+            item, self._peeked = self._peeked, _NOTHING
+            return item
+        try:
+            item = self.q.get_nowait()
+        except queue.Empty:
+            t0 = time.perf_counter()
+            try:
+                item = self.q.get(timeout=timeout)
+            finally:
+                self._add_wait("_consumer_wait", t0)
         if isinstance(item, _Failure):
-            raise RuntimeError("the sampler thread failed") from item.exc
+            self._failure = item
+            self._raise(item)
         return item
 
-    def __iter__(self):
+    @staticmethod
+    def _raise(failure: _Failure):
+        raise RuntimeError("a sampler thread failed") from failure.exc
+
+    def peek(self, timeout: Optional[float] = None):
+        """One-batch lookahead: the next batch WITHOUT consuming it.
+
+        Repeated ``peek()`` calls return the same object until the next
+        ``get()``, which returns the peeked batch first. Single-consumer
+        only: the lookahead cell is unlocked, so mixing ``peek()`` with
+        concurrent ``get()`` from other threads can deliver one batch twice.
+        The Hogwild runtime never peeks.
+        """
+        if self._peeked is _NOTHING:
+            self._peeked = self.get(timeout)
+        return self._peeked
+
+    def __iter__(self) -> Iterator:
         return self
 
     def __next__(self):
         return self.get()
 
-    def close(self):
-        # the producer checks _stop only between put attempts, so drain
-        # repeatedly until it has actually exited
+    # ---- diagnostics / shutdown -------------------------------------------
+    def stats(self) -> dict:
+        """Backpressure snapshot: who is waiting on whom."""
+        with self._stat_lock:
+            return {
+                "queue_depth": self.q.qsize(),
+                "produced": self._produced,
+                "producer_wait_s": self._producer_wait,
+                "consumer_wait_s": self._consumer_wait,
+            }
+
+    def close(self, timeout: float = 2.0):
+        # Producers check _stop only between put attempts, so each can hold
+        # one more batch after a single drain and then block in ``put`` until
+        # its 0.2 s timeout: drain repeatedly until every thread has exited.
         self._stop.set()
-        deadline = time.monotonic() + self.CLOSE_TIMEOUT_S
-        while self.thread.is_alive() and time.monotonic() < deadline:
+        deadline = time.monotonic() + timeout
+        while (any(t.is_alive() for t in self.threads)
+               and time.monotonic() < deadline):
             try:
                 while True:
                     self.q.get_nowait()
             except queue.Empty:
                 pass
-            self.thread.join(timeout=0.05)
-        if self.thread.is_alive():
+            for t in self.threads:
+                if t.is_alive():
+                    t.join(timeout=0.05)
+        stuck = [t.name for t in self.threads if t.is_alive()]
+        if stuck:
             warnings.warn(
-                f"Prefetcher thread did not exit within "
-                f"{self.CLOSE_TIMEOUT_S:.1f}s of "
-                "close(); sample_fn is slow or hung — the daemon thread will "
-                "be abandoned", RuntimeWarning)
+                f"{type(self).__name__} producer thread(s) {stuck} did not "
+                f"exit within {timeout:.1f}s of close(); sample_fn is slow or "
+                "hung — the daemon thread(s) will be abandoned", RuntimeWarning)
+
+
+class Prefetcher(WorkerPool):
+    """Single-producer WorkerPool: ``sample_fn`` runs ahead of the trainer."""
+
+    def __init__(self, sample_fn: Callable[[], object], depth: int = 2):
+        super().__init__(lambda _wid: sample_fn, n_workers=1, depth=depth)
+
+    @property
+    def thread(self) -> threading.Thread:
+        return self.threads[0]

@@ -9,8 +9,9 @@ at once; ``launch()`` builds on first use.
 
 Every launch function returns ``cudaGetLastError()``; ``launch()`` raises
 when it is not 0. Wrappers count their launches in ``LAUNCHES`` (one plain
-integer per kernel), which a run reads to show that its path went through
-the kernels.
+integer per kernel) through ``count()``, under a lock: Hogwild trainers and
+autograd's device thread launch at the same time. A run reads the counts to
+show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -64,11 +65,20 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count(*names: str) -> None:
+    """Add one launch to each of ``names``; safe from any thread."""
+    with _COUNT_LOCK:
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def nvcc() -> str:

@@ -54,7 +54,7 @@ def flash_attention_kernel(q, k, v, causal=True, window=0, q_offset=0):
                      out.data_ptr(), B, H, Hkv, T, S, dh, int(causal), int(window),
                      int(q_offset), float(dh ** -0.5), _DTYPES[q.dtype],
                      torch.cuda.current_stream(q.device).cuda_stream)
-        build.LAUNCHES["flash_attention"] += 1
+        build.count("flash_attention")
     return out
 
 

@@ -62,7 +62,7 @@ def pairwise_kernel(mode: str, o: torch.Tensor, negs: torch.Tensor) -> torch.Ten
         build.launch("pairwise", o3.data_ptr(), n3.data_ptr(), out.data_ptr(),
                      G, B, K, D, _MODE_ID[mode],
                      torch.cuda.current_stream(o.device).cuda_stream)
-        build.LAUNCHES[f"pairwise_{mode}"] += 1
+        build.count(f"pairwise_{mode}")
     return out if o.dim() == 3 else out[0]
 
 
@@ -104,8 +104,7 @@ def l1_bwd_kernel(o: torch.Tensor, negs: torch.Tensor, g: torch.Tensor,
             build.launch("l1_bwd", o3.data_ptr(), n3.data_ptr(), g3.data_ptr(),
                          d_o.data_ptr(), d_n.data_ptr(), scratch.data_ptr(),
                          G, B, K, D, stream, symbol="l1_bwd_pair_launch")
-            for name in ("l1_bwd_pair", "l1_bwd_do", "l1_bwd_dn"):
-                build.LAUNCHES[name] += 1
+            build.count("l1_bwd_pair", "l1_bwd_do", "l1_bwd_dn")
         out = [d_o, d_n]
     else:
         out = []
@@ -120,7 +119,7 @@ def l1_bwd_kernel(o: torch.Tensor, negs: torch.Tensor, g: torch.Tensor,
             if d.numel():
                 build.launch("l1_bwd", x.data_ptr(), y.data_ptr(), g3.data_ptr(),
                              d.data_ptr(), G, R, C, D, trans, stream)
-                build.LAUNCHES[name] += 1
+                build.count(name)
             out.append(d)
     if o.dim() == 2:
         out = [d if d is None else d[0] for d in out]

@@ -59,7 +59,7 @@ def dedup_aggregate(
         build.launch("dedup_aggregate", ids32.data_ptr(), grads.data_ptr(),
                      uid.data_ptr(), agg.data_ptr(), n, D,
                      torch.cuda.current_stream(ids.device).cuda_stream)
-        build.LAUNCHES["dedup_aggregate"] += 1
+        build.count("dedup_aggregate")
     return uid, agg
 
 
@@ -92,5 +92,5 @@ def fused_sparse_adagrad(
                      ids32.data_ptr(), grads.data_ptr(), n, D, table.shape[0],
                      float(lr), float(eps),
                      torch.cuda.current_stream(table.device).cuda_stream)
-        build.LAUNCHES["fused_update"] += 1
+        build.count("fused_update")
     return table, gsq

@@ -1,10 +1,10 @@
 """The step loops of the port's drivers, with behavior injected as hooks.
 
-A port of the single-trainer part of the JAX package's launch/engine.py:
+A port of the JAX package's launch/engine.py:
 
     state = train_loop(step_fn, state, make_batch, n_steps, start=start,
                        hooks=[LoggingHook(...), CheckpointHook(...),
-                              EvalHook(...)])
+                              EvalHook(...), TelemetryHook(...)])
     state = run_loop(step_fn, state, n_steps, hooks=[ThroughputHook(...)])
 
 ``run_loop`` is the batch-free loop of the serve driver:
@@ -15,21 +15,32 @@ overlapping host-side sampling (and the host-to-device copy of the batch)
 with device compute. ``step_fn(state, batch) -> (state, metrics)``; the
 metrics are 0-d tensors. PyTorch launches CUDA work asynchronously, so the
 loop never waits for the card: only hooks read metric values, and only at
-their cadence (``LoggingHook`` every ``log_every`` steps; ``MetricsHook``
-keeps the tensors and reads them when its history is asked for).
+their cadence (``LoggingHook`` every ``log_every`` steps, ``TelemetryHook``
+every ``every``; ``MetricsHook`` keeps the tensors and reads them when its
+history is asked for).
 
 Hooks see every step after it is issued, ``on_step(i, state, metrics,
 stats)`` with ``i`` the 1-based step number, then ``on_end(i, state)``
 once. A hook that flushes the deferred update (T5) does so in place on the
 loop's state (``kge_model.flush_state``), so no hook hands back a
 replacement state.
+
+With ``n_trainers > 1`` or ``n_samplers > 1`` the loop is the Hogwild
+multi-trainer runtime (launch/runtime.py, paper §3.1): M trainer threads
+step one shared ``StoreSlot`` and N sampler workers feed one bounded queue.
+The runtime calls every ``on_step`` holding the slot's lock, with a
+monotone step counter, so hooks may keep plain mutable state without locks
+of their own and read tables no apply is changing; ``stats`` also carries
+``trainer`` (which trainer stepped) and ``queue_depth`` (sampler-queue
+backpressure).
 """
 
 from __future__ import annotations
 
+import json
 import time
 import warnings
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -54,7 +65,10 @@ class LoggingHook(Hook):
     If the step metrics carry ``pend_dropped`` > 0 (capacity-bounded T5
     defer losing updates), the first occurrence raises a one-shot
     ``RuntimeWarning`` and the count is appended to every log line. Rates
-    count the steps after ``start`` (a resumed run's first step).
+    count the steps after ``start`` (a resumed run's first step) and are
+    aggregate across trainers (the step counter is global); under the
+    multi-trainer runtime the line also reports how many trainers stepped
+    and the sampler-queue depth.
     """
 
     def __init__(self, log_every: int = 100, batch_size: int = 0,
@@ -64,12 +78,18 @@ class LoggingHook(Hook):
         self.start = start
         self.print_fn = print_fn
         self.t0 = None
+        self.trainers = set()
+        self.qdepth = None
         self.pend_dropped = 0.0
         self._warned_pend = False
 
     def on_step(self, i, state, metrics, stats):
         if self.t0 is None:
             self.t0 = time.perf_counter()
+        if stats and "trainer" in stats:
+            self.trainers.add(stats["trainer"])
+        if stats and "queue_depth" in stats:
+            self.qdepth = stats["queue_depth"]
         if i % self.log_every:
             return
         loss = float(metrics["loss"])  # waits for the step's device work
@@ -78,6 +98,8 @@ class LoggingHook(Hook):
         line = f"step {i:6d} loss {loss:8.4f} ({done/dt:6.1f} steps/s"
         if self.batch_size:
             line += f", {done*self.batch_size/dt:9.0f} triplets/s"
+        if len(self.trainers) > 1:
+            line += f", {len(self.trainers)} trainers, q={self.qdepth}"
         if "pend_dropped" in metrics:
             self.pend_dropped = float(metrics["pend_dropped"])
             if self.pend_dropped > 0 and not self._warned_pend:
@@ -97,19 +119,27 @@ class CheckpointHook(Hook):
     already covers the final step (no redundant duplicate checkpoint).
 
     ``flush_fn`` (``kge_model.flush_state``) is applied before each save so
-    deferred (T5) gradients land in the checkpoint.
+    deferred (T5) gradients land in the checkpoint; ``save_fn(ckpt_dir, i,
+    state)`` writes it (``checkpoint.save_checkpoint`` by default).
     """
 
-    def __init__(self, ckpt_dir: str, save_every: int, flush_fn: Callable):
+    def __init__(self, ckpt_dir: str, save_every: int = 0,
+                 flush_fn: Optional[Callable] = None,
+                 save_fn: Optional[Callable] = None):
+        if save_fn is None:
+            from repro_torch.common.checkpoint import save_checkpoint
+
+            save_fn = save_checkpoint
         self.ckpt_dir = ckpt_dir
         self.save_every = save_every
         self.flush_fn = flush_fn
+        self.save_fn = save_fn
         self.last_saved = -1
 
     def _save(self, i, state):
-        from repro_torch.common.checkpoint import save_checkpoint
-
-        save_checkpoint(self.ckpt_dir, i, self.flush_fn(state))
+        if self.flush_fn is not None:
+            state = self.flush_fn(state)
+        self.save_fn(self.ckpt_dir, i, state)
         self.last_saved = i
 
     def on_step(self, i, state, metrics, stats):
@@ -193,13 +223,126 @@ class MetricsHook(Hook):
         return {k: [float(v) for v in vals] for k, vals in self._raw.items()}
 
 
+class TelemetryHook(Hook):
+    """Bridge the step loop into the telemetry registry + JSONL/trace files.
+
+    Every step (host-side only, no device sync):
+      * ``engine/steps`` counter;
+      * sampler ``stats`` folded in (``pipeline/queue_depth`` gauge,
+        ``sampler/dropped`` counter);
+      * static per-step volumes (``telemetry.trace_inc``) drained and
+        replayed as sticky per-step gauges (``<name>_per_step``) plus
+        accumulating counters (``<name>``).
+
+    Every ``every`` steps (the snapshot cadence: reading the 0-d metric
+    tensors synchronises with the card, so keep ``every`` near the log
+    cadence):
+      * scalar step metrics recorded as ``step/<key>`` gauges (missing keys
+        skipped);
+      * ``store/pend_dropped`` counter bumped from the sampled
+        ``pend_dropped`` metric (a lower bound at coarse cadences);
+      * one JSONL snapshot line appended to ``metrics_out``.
+
+    ``on_end`` writes a final snapshot and, with ``trace_out``, the Chrome
+    trace-event file (Perfetto-loadable). Inert when telemetry is disabled.
+    The runtime serialises hook calls and the registry's own lock covers the
+    counters, so one instance serves N trainers.
+    """
+
+    _METRIC_KEYS = ("loss", "pos_score", "neg_score", "pend_dropped",
+                    "push_dropped")
+
+    def __init__(self, metrics_out: Optional[str] = None,
+                 trace_out: Optional[str] = None, every: int = 50):
+        self.metrics_out = metrics_out
+        self.trace_out = trace_out
+        self.every = max(1, every)
+        self._file = None
+        self._per_step = {}
+
+    def _snapshot(self, i, metrics):
+        reg = telemetry.get_registry()
+        if metrics:
+            for k in self._METRIC_KEYS:
+                v = metrics.get(k)
+                if v is not None:
+                    reg.gauge(f"step/{k}", float(v))
+            pend = metrics.get("pend_dropped")
+            if pend is not None:
+                # the metric is cumulative over the store's lifetime;
+                # accumulate the sampled values: exact at every=1, a lower
+                # bound at coarser cadences (docs/TELEMETRY.md)
+                reg.inc("store/pend_dropped", max(0.0, float(pend)))
+            push = metrics.get("push_dropped")
+            if push is not None:
+                reg.inc("kvstore/coalesced_push_dropped", max(0.0, float(push)))
+        if self.metrics_out:
+            if self._file is None:
+                self._file = open(self.metrics_out, "w")
+            self._file.write(json.dumps(reg.snapshot(step=i)) + "\n")
+            self._file.flush()
+
+    def on_step(self, i, state, metrics, stats):
+        reg = telemetry.get_registry()
+        if not reg.enabled:
+            return
+        reg.inc("engine/steps")
+        if stats:
+            if "queue_depth" in stats:
+                reg.gauge("pipeline/queue_depth", stats["queue_depth"])
+            if "dropped" in stats:
+                reg.inc("sampler/dropped", stats["dropped"])
+        drained = reg.drain_statics()
+        if drained:
+            # the drained statics are the per-step volumes from here on
+            self._per_step.update(drained)
+        for name, v in self._per_step.items():
+            reg.gauge(f"{name}_per_step", v)
+            reg.inc(name, v)
+        if i % self.every == 0:
+            self._snapshot(i, metrics)
+
+    def on_end(self, i, state):
+        reg = telemetry.get_registry()
+        if not reg.enabled:
+            return
+        if i % self.every != 0:  # final snapshot not already written
+            self._snapshot(i, None)
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+        if self.trace_out:
+            reg.write_trace(self.trace_out)
+
+
+def _finish(i: int, state, hooks):
+    """The hooks' ``on_end``, in order; returns ``state``."""
+    for h in hooks:
+        h.on_end(i, state)
+    return state
+
+
 def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
-               hooks: Sequence[Hook] = ()):
+               hooks: Sequence[Hook] = (), n_trainers: int = 1,
+               n_samplers: int = 1, sampler_factory=None, split_step=None):
     """Drive ``step_fn`` from ``start`` (exclusive) to ``n_steps``.
 
     make_batch() -> (batch, stats); stats may be None. Batches are produced
     ahead on a host thread.
+
+    ``n_trainers``/``n_samplers`` > 1 switch to the Hogwild multi-trainer
+    runtime (launch/runtime.py): ``sampler_factory(worker_id)`` builds one
+    sample callable per sampler worker (required for n_samplers > 1), and
+    ``split_step=(grad_fn, apply_fn)`` enables stale-gradient Hogwild steps
+    (without it the whole ``step_fn`` is swapped under the slot's lock).
     """
+    if n_trainers > 1 or n_samplers > 1:
+        from repro_torch.launch.runtime import hogwild_train_loop
+
+        return hogwild_train_loop(
+            step_fn, state, make_batch, n_steps, start=start, hooks=hooks,
+            n_trainers=n_trainers, n_samplers=n_samplers,
+            sampler_factory=sampler_factory, split_step=split_step)
     i = start
     if start < n_steps:
         src = Prefetcher(make_batch)
@@ -211,9 +354,7 @@ def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
                     h.on_step(i, state, metrics, stats)
         finally:
             src.close()
-    for h in hooks:
-        h.on_end(i, state)
-    return state
+    return _finish(i, state, hooks)
 
 
 def run_loop(step_fn, state, n_steps: int, *, hooks: Sequence[Hook] = ()):
@@ -225,6 +366,4 @@ def run_loop(step_fn, state, n_steps: int, *, hooks: Sequence[Hook] = ()):
             state, metrics = step_fn(i - 1, state)
         for h in hooks:
             h.on_step(i, state, metrics, None)
-    for h in hooks:
-        h.on_end(i, state)
-    return state
+    return _finish(i, state, hooks)

@@ -5,6 +5,9 @@
         --ckpt-dir build/ckpt --save-every 100
     PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
         --model transe_l1 --steps 300 --ckpt-dir build/ckpt --resume
+    PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
+        --trainers 4 --samplers 4 --steps 200 \\
+        --metrics-out build/m.jsonl --trace-out build/t.json
 
 runs on the GPU through the port's CUDA kernels; ``--device cpu`` runs the
 same code with the kernels' plain PyTorch versions. Without ``--device cpu``
@@ -22,11 +25,24 @@ Switchable as in the JAX package's launch/train.py:
                                   (checkpoints in the JAX package's layout,
                                    every K steps and at the end; resume from
                                    the latest)
+    --trainers N                  (§3.1 Hogwild trainer threads on one card;
+                                   in joint mode each computes gradients
+                                   against possibly stale tables and applies
+                                   them to the latest; in naive mode trainers
+                                   share the whole-step swap)
+    --samplers N                  (§3.3 sampler workers feeding one bounded
+                                   batch queue, each with its own RNG stream)
+    --metrics-out F, --trace-out F
+                                  (JSONL telemetry snapshots every
+                                   --log-every steps; a Chrome trace with one
+                                   track per trainer and sampler)
 
-Not ported yet, and refused with the ROADMAP item that ports them: Hogwild
-(--trainers/--samplers > 1), the distributed path (--distributed,
---pipeline-depth, --push-every) and telemetry files (--metrics-out,
---trace-out).
+Multi-trainer turns T5 overlap off (Hogwild already overlaps updates with
+compute; the deferred buffers are single-writer), as in the JAX package.
+
+Not ported yet, and refused with the ROADMAP item that ports them: the
+distributed path (--distributed) and pipelined I/O (--pipeline-depth,
+--push-every).
 """
 
 from __future__ import annotations
@@ -41,13 +57,9 @@ import torch
 
 # flag -> ROADMAP item that ports it
 NOT_PORTED = {
-    "trainers": "Queue A6 (Hogwild)",
-    "samplers": "Queue A6 (Hogwild)",
     "distributed": "Queue A7 (distributed)",
     "pipeline_depth": "Queue A8 (pipelined I/O)",
     "push_every": "Queue A8 (pipelined I/O)",
-    "metrics_out": "Queue A9 (benchmarks and telemetry files)",
-    "trace_out": "Queue A9 (benchmarks and telemetry files)",
 }
 
 
@@ -77,14 +89,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--save-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--trainers", type=int, default=1,
+                    help="Hogwild trainer threads (paper §3.1)")
+    ap.add_argument("--samplers", type=int, default=1,
+                    help="sampler worker threads (paper §3.3)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write JSONL telemetry snapshots here "
+                         "(schema: docs/TELEMETRY.md)")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace-event JSON here (one track "
+                         "per trainer and sampler)")
     # accepted so that the reference's command lines fail loudly, not oddly
-    ap.add_argument("--trainers", type=int, default=1)
-    ap.add_argument("--samplers", type=int, default=1)
     ap.add_argument("--distributed", action="store_true")
     ap.add_argument("--pipeline-depth", type=int, default=0)
     ap.add_argument("--push-every", type=int, default=1)
-    ap.add_argument("--metrics-out", default="")
-    ap.add_argument("--trace-out", default="")
     return ap
 
 
@@ -120,17 +138,11 @@ def make_config(args):
 
 def train(args, hooks: Sequence = ()):
     """Single-machine training; returns ``(cfg, state)``. ``hooks`` run after
-    the entry point's own logging, checkpoint and eval hooks."""
-    from repro_torch.common.checkpoint import latest_step, restore_checkpoint
-    from repro_torch.common.device import resolve_device
-    from repro_torch.core import eval as E
-    from repro_torch.core.kge_model import (
-        batch_to_device, flush_state, init_state, naive_train_step, train_step,
-    )
-    from repro_torch.core.sampling import JointSampler, NaiveSampler
-    from repro_torch.launch.engine import (
-        CheckpointHook, EvalHook, LoggingHook, train_loop,
-    )
+    the entry point's own logging, telemetry, checkpoint and eval hooks.
+
+    With ``--metrics-out`` or ``--trace-out`` an enabled telemetry registry
+    is installed for the run and the previous one restored after it."""
+    from repro_torch.common import telemetry
 
     defaults = build_parser().parse_args([])
     for flag, item in NOT_PORTED.items():
@@ -138,23 +150,62 @@ def train(args, hooks: Sequence = ()):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not yet ported to repro_torch: "
                 f"ROADMAP {item}")
+    if not (args.metrics_out or args.trace_out):
+        return _train(args, hooks)
+    prev = telemetry.set_registry(
+        telemetry.MetricsRegistry(enabled=True, trace=bool(args.trace_out)))
+    try:
+        return _train(args, hooks)
+    finally:
+        telemetry.set_registry(prev)
+
+
+def _train(args, hooks):
+    from repro_torch.common.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.common.device import resolve_device
+    from repro_torch.core import eval as E
+    from repro_torch.core.kge_model import (
+        batch_to_device, flush_state, init_state, make_hogwild_step,
+        naive_train_step, train_step,
+    )
+    from repro_torch.core.sampling import JointSampler, NaiveSampler
+    from repro_torch.data.pipeline import worker_rngs
+    from repro_torch.launch.engine import (
+        CheckpointHook, EvalHook, LoggingHook, TelemetryHook, train_loop,
+    )
+
     dev = resolve_device(args.device)
     cfg, kg = make_config(args)
     print(f"graph: {kg.n_entities} entities, {kg.n_relations} relations, "
           f"{kg.triplets.shape[0]} triplets; device {dev}")
 
+    hogwild = args.trainers > 1
     # T5 overlap on the joint path only: the naive strawman keeps immediate
-    # updates, matching the paper's baseline (and the JAX launch/train.py)
-    overlap = cfg.overlap_update and args.neg_mode == "joint"
+    # updates, matching the paper's baseline (and the JAX launch/train.py).
+    # Hogwild replaces it: the deferred buffers are single-writer.
+    overlap = cfg.overlap_update and args.neg_mode == "joint" and not hogwild
+    if hogwild and cfg.overlap_update and args.neg_mode == "joint":
+        print(f"{args.trainers} trainers: T5 overlap off "
+              "(Hogwild already overlaps updates with compute)")
     state = init_state(cfg, torch.Generator().manual_seed(args.seed),
                        overlap=overlap, device=dev)
-    rng = np.random.default_rng(args.seed)
+    split_step = None
     if args.neg_mode == "joint":
-        sampler = JointSampler(kg.train, cfg.n_entities, cfg, rng)
+        sampler_cls = JointSampler
         step = functools.partial(train_step, cfg)
-    else:
-        sampler = NaiveSampler(kg.train, cfg.n_entities, cfg, rng)
+        if hogwild:  # stale-gradient two-phase step (paper §3.1)
+            split_step = make_hogwild_step(cfg)
+    else:  # trainers share the whole-step swap
+        sampler_cls = NaiveSampler
         step = functools.partial(naive_train_step, cfg)
+    sampler = sampler_cls(kg.train, cfg.n_entities, cfg,
+                          np.random.default_rng(args.seed))
+    samplers = [sampler_cls(kg.train, cfg.n_entities, cfg, r)
+                for r in worker_rngs(args.seed, max(1, args.samplers))]
+
+    def sampler_factory(wid):
+        s = samplers[wid]
+        return lambda: (batch_to_device(s.sample(), dev), None)
 
     start = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
@@ -164,6 +215,10 @@ def train(args, hooks: Sequence = ()):
 
     flush = functools.partial(flush_state, cfg)
     own = [LoggingHook(args.log_every, batch_size=cfg.batch_size, start=start)]
+    if args.metrics_out or args.trace_out:
+        own.append(TelemetryHook(metrics_out=args.metrics_out or None,
+                                 trace_out=args.trace_out or None,
+                                 every=max(1, args.log_every)))
     if args.ckpt_dir:
         own.append(CheckpointHook(args.ckpt_dir, args.save_every, flush))
     filter_map = {}
@@ -184,7 +239,9 @@ def train(args, hooks: Sequence = ()):
         own.append(EvalHook(evaluate, eval_every=args.eval_every))
     state = train_loop(step, state,
                        lambda: (batch_to_device(sampler.sample(), dev), None),
-                       args.steps, start=start, hooks=[*own, *hooks])
+                       args.steps, start=start, hooks=[*own, *hooks],
+                       n_trainers=args.trainers, n_samplers=args.samplers,
+                       sampler_factory=sampler_factory, split_step=split_step)
     return cfg, state
 
 

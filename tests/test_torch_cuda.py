@@ -847,3 +847,72 @@ def test_mamba2_prefill_on_card_matches_cpu(cuda):
     assert build.LAUNCHES["ssd_scan"] == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), prefill(params, {"tokens": tok}),
                                rtol=2e-3, atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# Hogwild on the card: the two-phase step and the launch counts
+# ---------------------------------------------------------------------------
+def _hogwild_setup(model):
+    from repro_torch.common.config import KGEConfig
+    from repro_torch.data.kg_synth import make_synthetic_kg
+
+    kg = make_synthetic_kg(n_entities=2000, n_relations=40, n_edges=20_000,
+                           n_clusters=8, seed=0)
+    cfg = KGEConfig(model=model, n_entities=2000, n_relations=40, dim=400,
+                    batch_size=256, neg_sample_size=64, lr=0.1)
+    return cfg, kg
+
+
+@pytest.mark.parametrize("model", ["transe_l2", "transe_l1"])
+def test_two_phase_step_equals_train_step_bit_for_bit(cuda, model):
+    """grad_step then apply_step runs the same launches on the same inputs
+    as train_step with T5 off, so the tables come out with the same bits."""
+    from repro_torch.core import kge_model as K
+    from repro_torch.core.sampling import JointSampler
+
+    cfg, kg = _hogwild_setup(model)
+    sampler = JointSampler(kg.train, cfg.n_entities, cfg, np.random.default_rng(0))
+    one = K.init_state(cfg, torch.Generator().manual_seed(0), device=cuda)
+    two = K.state_from_arrays(cfg, K.state_to_arrays(one), device=cuda)
+    grad_fn, apply_fn = K.make_hogwild_step(cfg)
+    for _ in range(3):
+        batch = K.batch_to_device(sampler.sample(), cuda)
+        one, m1 = K.train_step(cfg, one, batch)
+        grads, m2 = grad_fn(two, batch)
+        two = apply_fn(two, batch, grads)
+        assert torch.equal(m1["loss"], m2["loss"])
+    assert one.step == two.step == 3
+    for name in ("entity", "ent_gsq", "r_emb", "rel_gsq"):
+        assert torch.equal(getattr(one, name), getattr(two, name)), name
+
+
+@pytest.mark.parametrize("model,kernels", [
+    ("transe_l2", ("pairwise_l2sq", "dedup_aggregate", "fused_update")),
+    ("transe_l1", ("pairwise_l1", "l1_bwd_pair", "dedup_aggregate", "fused_update")),
+])
+def test_hogwild_launches_each_kernel_twice_a_step(cuda, model, kernels):
+    """Three trainers and two samplers on the card, T5 off: exactly two
+    launches of each kernel of the path a step, none lost across threads."""
+    from repro_torch.core import kge_model as K
+    from repro_torch.core.sampling import JointSampler
+    from repro_torch.data.pipeline import worker_rngs
+    from repro_torch.launch.engine import MetricsHook, train_loop
+
+    cfg, kg = _hogwild_setup(model)
+    samplers = [JointSampler(kg.train, cfg.n_entities, cfg, r)
+                for r in worker_rngs(0, 2)]
+
+    def factory(wid):
+        return lambda: (K.batch_to_device(samplers[wid].sample(), cuda), None)
+
+    state = K.init_state(cfg, torch.Generator().manual_seed(0), device=cuda)
+    mh = MetricsHook()
+    build.reset_launches()
+    state = train_loop(lambda s, b: K.train_step(cfg, s, b), state, factory(0), 40,
+                       hooks=[mh], n_trainers=3, n_samplers=2, sampler_factory=factory,
+                       split_step=K.make_hogwild_step(cfg))
+    torch.cuda.synchronize()
+    assert state.step == 40 and len(mh.history["loss"]) == 40
+    assert all(np.isfinite(mh.history["loss"]))
+    for name in kernels:
+        assert build.LAUNCHES[name] == 80, (name, build.LAUNCHES[name])

@@ -12,6 +12,7 @@ those by no more than 2 * lr * steps. The losses match within 2e-5.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -187,10 +188,39 @@ def test_cli_trains_rescal_and_leaves_its_relation_rows():
 def test_cli_refuses_unported_modes():
     from repro_torch.launch import train
 
-    for flags, item in ((["--distributed"], "A7"), (["--trainers", "2"], "A6"),
-                        (["--metrics-out", "m.jsonl"], "A9")):
+    for flags, item in ((["--distributed"], "A7"), (["--push-every", "2"], "A8")):
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--device", "cpu", *flags])
+
+
+def test_cli_hogwild_trains_exact_steps_and_writes_valid_files(tmp_path):
+    """``--trainers 2 --samplers 2 --metrics-out --trace-out`` on the CPU:
+    exactly --steps applies (the state's counter and both step counters),
+    T5 off, and files that pass the validators of both packages."""
+    from repro.common import telemetry as jax_telemetry
+    from repro_torch.common import telemetry
+    from repro_torch.launch import train
+
+    m, t = tmp_path / "m.jsonl", tmp_path / "t.json"
+    hook = engine.MetricsHook(("loss",))
+    cfg, st = train.main(["--device", "cpu", "--trainers", "2", "--samplers", "2",
+                          "--steps", "12", "--scale", "0.02", "--dim", "16",
+                          "--batch-size", "32", "--neg", "8", "--log-every", "5",
+                          "--metrics-out", str(m), "--trace-out", str(t)],
+                         hooks=[hook])
+    assert st.step == 12 and st.pend_ids is None
+    assert len(hook.history["loss"]) == 12 and all(np.isfinite(hook.history["loss"]))
+    assert not telemetry.get_registry().enabled  # the run's registry is gone
+    for mod in (telemetry, jax_telemetry):
+        assert mod.validate_metrics_jsonl(str(m), require=("engine/steps",
+                                                           "runtime/steps")) == 3
+        assert mod.validate_trace(str(t)) > 0
+    last = [json.loads(line) for line in m.read_text().splitlines()][-1]
+    assert last["step"] == 12
+    assert last["counters"]["engine/steps"] == last["counters"]["runtime/steps"] == 12
+    tracks = {e["args"]["name"] for e in json.loads(t.read_text())["traceEvents"]
+              if e.get("ph") == "M"}
+    assert {"trainer-0", "trainer-1"} <= tracks
 
 
 def test_telemetry_counts_flushes_and_records_spans(kg):
