@@ -17,7 +17,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      f32 and in bf16, with SDPA's own error beside
      the kernel's; the SSD scan at Mamba2-2.7B's prefill, a long
      sequence, a ragged T and T = 1, also against the step-by-step
-     ``ssd_ref``), with its time, the plain version's time, one PyTorch
+     ``ssd_ref``; dedup and the update also at phase 13's shapes, the
+     5,632-slot T5 flush and the 1,280-slot relation apply), with its
+     time, the plain version's time, one PyTorch
      library call's time as a yardstick where one computes the same
      function, and the least time the card could take for the same work
      (bound);
@@ -86,6 +88,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      for 240 steps each: the means of the losses of steps 171-200 within
      15% between 1 and 4 trainers, triplets/s over steps 51-200 and the
      card's busy share from a torch.profiler window in steps 211-235.
+ 13. distributed: ``python -m repro_torch.launch.train --dataset fb15k
+     --model transe_l2 --distributed --mesh 1x1 --ckpt-dir
+     build/chip_smoke_dist/ckpt --save-every 100 --metrics-out
+     build/chip_smoke_dist/m.jsonl`` in process: a world of one rank on NCCL
+     (the KVStore's all_to_alls and the servers' psums run over groups of
+     one), 200 steps at phase 5's full width with T5 on; the loss falls and
+     pairwise_l2sq, dedup_aggregate and fused_update each launch at least
+     twice a step; step time, device time and idle share as in phase 5, and
+     the kvstore/* counters of the metrics file (printed, not gated); the
+     checkpoint of step 200 holds the final global state and restores on
+     the card bit for bit, and ``--resume --steps 210`` goes on from step
+     200; ``--mesh 2x2`` is refused with the card count; TransE_l1 for 50
+     steps launches pairwise_l1 and l1_bwd_pair at least twice a step with
+     a falling loss; three dim-400 steps of TransE_l2 and DistMult at lr
+     0.05 through ``run_batches`` in a 1x1 world on the card and in a gloo
+     world of one on the CPU, from one carried-over state and one batch
+     list, under phase 4's rule (TransE_l1's card reading printed beside
+     two CPU runs that differ only in the order of the batch's triplets,
+     which must already part beyond the rule).
 
 Launch counts are set to 0 just before each path and read just after it.
 
@@ -134,6 +155,9 @@ HOGWILD_TIMED = (50, 200)  # triplets/s over steps 51-200
 HOGWILD_TRACED = (210, 235)  # the profiler window, on trainer 0's steps
 HOGWILD_SCALING_STEPS = 240
 HOGWILD_TOL = 0.15  # 1 vs 4 trainers, last-30 loss means: JAX's rule
+DIST_DIR = ROOT / "build" / "chip_smoke_dist"
+DIST_L1_STEPS = 50
+DIST_AGREEMENT_STEPS = 3
 # flash attention, (B, H, Hkv, T, S, dh, window, q_offset, dtype); the first
 # is what the Qwen prefill path launches
 FLASH_SHAPES = {
@@ -472,6 +496,26 @@ def path_batch_ids(torch, np, dev, kg):
     return ws["ent_ids"].to(torch.int32), ws["rel_ids"].to(torch.int32)
 
 
+def dist_path_ids(torch, np, kg):
+    """The ids phase 13's 1x1 world hands the dedup kernel a step: the T5
+    flush of the entity pend buffer (a DistBatch's 3,584 local slots, then
+    2,048 remote slots, all pads on one machine) and the relation apply
+    (1,024 local + 256 remote slots)."""
+    import dataclasses
+
+    from repro_torch.core.graph_part import partition
+    from repro_torch.core.rel_part import relation_partition
+    from repro_torch.core.sampling import DistSampler
+
+    cfg = dataclasses.replace(fb15k_config(kg, "transe_l2"), n_parts=1)
+    db = DistSampler(kg.train, partition(kg.train, cfg.n_entities, 1),
+                     relation_partition(kg.rel_counts(), 1), cfg,
+                     np.random.default_rng(0)).sample()
+    ent = np.concatenate([db.ent_local_ids[0], db.ent_remote_req[0].reshape(-1)])
+    rel = np.concatenate([db.rel_local_ids[0], db.rel_remote_req[0].reshape(-1)])
+    return torch.from_numpy(ent), torch.from_numpy(rel)
+
+
 def check_dedup(torch, np, dev, gen, kg):
     from repro_torch.kernels.sparse_adagrad.ops import dedup_aggregate
     from repro_torch.kernels.sparse_adagrad.ref import dedup_aggregate_ref
@@ -480,6 +524,7 @@ def check_dedup(torch, np, dev, gen, kg):
     cases = {"entity": ent, "relation": rel,
              "entity_pads": _dedup_ids(torch, gen, 2560, 14951),
              "relation_pads": _dedup_ids(torch, gen, 1024, 1345)}
+    cases["dist_entity_flush"], cases["dist_relation"] = dist_path_ids(torch, np, kg)
     err, tol, timed = 0.0, 0.0, {}
     for case, ids in cases.items():
         n, D = ids.numel(), 400
@@ -513,9 +558,8 @@ def check_dedup(torch, np, dev, gen, kg):
         print(f"    {_fmt(timed[case])}")
     return [dict(name="dedup_aggregate", source="src/repro_torch/csrc/dedup_aggregate.cu",
                  replaces=TPU_KERNEL["dedup_aggregate"], max_abs_err=err, tol=tol,
-                 **timed["entity"], other_shapes={k: timed[k] for k in
-                                                 ("relation", "entity_pads",
-                                                  "relation_pads")})]
+                 **timed["entity"], other_shapes={k: timed[k] for k in cases
+                                                 if k != "entity"})]
 
 
 def check_update(torch, dev, gen):
@@ -523,7 +567,10 @@ def check_update(torch, dev, gen):
     from repro_torch.kernels.sparse_adagrad.ref import fused_update_ref
 
     lr, eps, err, tol, timed = 0.25, 1e-10, 0.0, 0.0, {}
-    for n, n_rows in ((2560, 14951), (1024, 1345)):
+    # the single path's entity and relation applies, then phase 13's flush
+    # of 5,632 pend slots into its 14,952-row block and its 1,280-slot
+    # relation apply
+    for n, n_rows in ((2560, 14951), (1024, 1345), (5632, 14952), (1280, 1352)):
         D = 400
         table = torch.randn(n_rows, D, generator=gen).to(dev)
         gsq = torch.rand(n_rows, D, generator=gen).to(dev)
@@ -565,7 +612,11 @@ def check_update(torch, dev, gen):
     return [dict(name="fused_update", source="src/repro_torch/csrc/fused_update.cu",
                  replaces=TPU_KERNEL["fused_update"], max_abs_err=err, tol=tol,
                  shape="14951x400, n=2560", **timed[2560],
-                 other_shapes={"relation": {"shape": "1345x400, n=1024", **timed[1024]}})]
+                 other_shapes={"relation": {"shape": "1345x400, n=1024", **timed[1024]},
+                               "dist_entity_flush": {"shape": "14952x400, n=5632",
+                                                     **timed[5632]},
+                               "dist_relation": {"shape": "1352x400, n=1280",
+                                                 **timed[1280]}})]
 
 
 def _attn_mask(torch, dev, T, S, window, q_offset):
@@ -957,9 +1008,14 @@ def run_path(torch, np, model, extra, timed_from, hooks=()):
     check(np.isfinite(loss).all(), "non-finite loss")
     check(last < first, f"loss did not fall: {first} -> {last}")
     check(max(hist["pend_dropped"]) == 0, "deferred update dropped rows")
-    check(tuple(state.entity.shape) == (cfg.n_entities, cfg.dim)
-          and bool(torch.isfinite(state.entity).all())
-          and bool(torch.isfinite(state.r_emb).all()), "tables not finite")
+    if isinstance(state, dict):  # --distributed: the global state, numpy
+        check(state["entity"].shape[1] == cfg.dim
+              and all(np.isfinite(state[k]).all() for k in ("entity", "r_emb")),
+              "tables not finite")
+    else:
+        check(tuple(state.entity.shape) == (cfg.n_entities, cfg.dim)
+              and bool(torch.isfinite(state.entity).all())
+              and bool(torch.isfinite(state.r_emb).all()), "tables not finite")
     summary = dict(step_ms=step_ms, device_ms_per_step=device_step_ms,
                    device_busy=busy, loss_first10=first, loss_last10=last,
                    triplets_per_s=cfg.batch_size / step_ms * 1e3,
@@ -1593,6 +1649,214 @@ def run_hogwild(torch, np, dev, kg):
     return {"hogwild_transe_l2": l2_launches, "hogwild_transe_l1": l1_launches}, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 13: distributed training, a 1x1 NCCL world on the card
+# ---------------------------------------------------------------------------
+DIST_TABLES = ("entity", "ent_gsq", "r_emb", "rel_gsq", "shared_rel", "shared_gsq",
+               "pend_grads")
+
+
+def dist_case(np, model):
+    """Phase 13's agreement case: ``model`` at dim 400, batch 256, k 64 and
+    lr 0.05 on a small synthetic graph, n_parts 1: (prog, initial global
+    arrays, DIST_AGREEMENT_STEPS DistBatches)."""
+    import dataclasses
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.graph_part import partition
+    from repro_torch.core.rel_part import relation_partition
+    from repro_torch.core.sampling import DistSampler
+    from repro_torch.data.kg_synth import fb15k_like
+
+    kg = fb15k_like(scale=0.05, seed=1)
+    cfg = dataclasses.replace(fb15k_config(kg, model), batch_size=256,
+                              neg_sample_size=64, lr=0.05, n_parts=1)
+    book = partition(kg.train, cfg.n_entities, 1)
+    rp = relation_partition(kg.rel_counts(), 1)
+    prog = D.make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared)
+    sampler = DistSampler(kg.train, book, rp, cfg, np.random.default_rng(1))
+    return (prog, D.init_dist_arrays(prog, 1),
+            [sampler.sample() for _ in range(DIST_AGREEMENT_STEPS)])
+
+
+def dist_compare(np, what, got, want, lr):
+    """Phase 4's rule on two ``run_batches`` results: (losses within 1e-5,
+    {table: (max diff, share of entries off 1e-5)}, every table within the
+    rule, pend ids equal)."""
+    (h_got, s_got), (h_want, s_want) = got, want
+    l_got, l_want = [m["loss"] for m in h_got], [m["loss"] for m in h_want]
+    print(f"  {what}: losses {l_got} vs {l_want}")
+    tables = {}
+    for name in DIST_TABLES:
+        diff = np.abs(s_got[name] - s_want[name])
+        tables[name] = (float(diff.max()),
+                        float((diff > 1e-5 + 1e-5 * np.abs(s_want[name])).mean()))
+    print(f"  {what}: (max diff, share off) " + ", ".join(
+        f"{name} ({most:.3e}, {off:.2e})" for name, (most, off) in tables.items()))
+    return (np.allclose(l_got, l_want, rtol=1e-5, atol=1e-5), tables,
+            all(off <= 1e-3 and most <= 2 * lr * DIST_AGREEMENT_STEPS
+                for most, off in tables.values()),
+            np.array_equal(s_got["pend_ids"], s_want["pend_ids"]))
+
+
+def dist_agreement(torch, np, dev, model, gate=True):
+    """``run_batches`` of ``dist_case(model)`` in a 1x1 world on the card
+    (NCCL, kernels) and in a 1x1 gloo world on the CPU (plain versions),
+    from one carried-over global state and one list of DistBatches; with
+    ``gate``, phase 4's rule must hold."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import run_world
+
+    prog, init, batches = dist_case(np, model)
+    runs = {d: run_world(1, 1, D.run_batches, (prog, init, batches), device=d)
+            for d in (dev, "cpu")}
+    losses_ok, tables, tables_ok, ids_ok = dist_compare(
+        np, f"dist {model} card vs cpu", runs[dev], runs["cpu"], prog.cfg.lr)
+    if gate:
+        check(losses_ok, f"dist {model}: card and CPU losses disagree")
+        check(tables_ok, f"dist {model}: card and CPU tables disagree")
+        check(ids_ok, f"dist {model}: card and CPU pend ids differ")
+    return {name: dict(max_diff=most, share_off=off)
+            for name, (most, off) in tables.items()}
+
+
+def dist_sum_order_witness(np, model):
+    """What phase 4's rule reads between two CPU runs of ``dist_case(model)``
+    that differ only in the order of the batch's triplets (the same loss
+    function, its sums taken in another order). Returns the largest share
+    off."""
+    import dataclasses
+
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import run_world
+
+    prog, init, batches = dist_case(np, model)
+    perm = np.random.default_rng(0).permutation(prog.cfg.batch_size)
+    shuffled = [dataclasses.replace(db, **{k: getattr(db, k)[:, perm] for k in
+                                           ("h_slot", "t_slot", "rel_slot",
+                                            "rel_shared")}) for db in batches]
+    runs = [run_world(1, 1, D.run_batches, (prog, init, b), device="cpu")
+            for b in (batches, shuffled)]
+    _, tables, _, _ = dist_compare(np, f"dist {model} cpu vs cpu, triplets permuted",
+                                   runs[1], runs[0], prog.cfg.lr)
+    return max(off for _, off in tables.values())
+
+
+def run_distributed(torch, np, dev):
+    """Phase 13. Returns ({run: launches}, summary)."""
+    from repro_torch.common.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import build
+    from repro_torch.launch import engine, train
+    from repro_torch.launch.mesh import run_world
+
+    base = ["--distributed", "--mesh", "1x1"]
+    try:
+        train.main(["--dataset", "fb15k", "--distributed", "--mesh", "2x2", "--steps", "1"])
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    print(f"  --mesh 2x2 on {torch.cuda.device_count()} card(s): {refused!r}")
+    check("needs 4 CUDA devices" in refused, "a 2x2 CUDA world was not refused")
+
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    ckpt_dir, m_path = DIST_DIR / "ckpt", DIST_DIR / "m.jsonl"
+    ckpt = ["--ckpt-dir", str(ckpt_dir), "--save-every", "100"]
+    print(f"  TransE_l2, {MAIN_PATH_STEPS} steps, {' '.join(base)} {' '.join(ckpt)} "
+          f"--metrics-out {m_path.relative_to(ROOT)}")
+    l2_launches, summary, cfg, final, out = run_path(
+        torch, np, "transe_l2", [*base, *ckpt, "--metrics-out", str(m_path)], 100)
+    check_launched(l2_launches, ("pairwise_l2sq", "dedup_aggregate", "fused_update"),
+                   MAIN_PATH_STEPS)
+    cut = re.findall(r"partitioner=(\S+) cut=(\S+)", out)
+    check(cut == [("metis", "0.000")], f"partitioner line {cut}")
+    snap = json.loads(m_path.read_text().splitlines()[-1])
+    kv = {k: v for k, v in {**snap["counters"], **snap["gauges"]}.items()
+          if k.startswith("kvstore/")}
+    print(f"  kvstore counters at step {snap.get('step')}: {kv}")
+    summary["kvstore"] = kv
+
+    # the checkpoint of step 200 holds the final global state, under the
+    # reference's keys, and restores in a 1x1 world on the card bit for bit
+    saved = ckpt_dir / f"step_{MAIN_PATH_STEPS:010d}"
+    files = {p.stem: np.load(p) for p in saved.glob("*.npy")}
+
+    def equal(x, y):
+        return set(x) == set(y) and all(
+            np.asarray(x[k]).dtype == np.asarray(y[k]).dtype
+            and np.array_equal(x[k], y[k]) for k in x)
+
+    from repro_torch.core.graph_part import partition
+    from repro_torch.core.rel_part import relation_partition
+    from repro_torch.data.kg_synth import fb15k_like
+
+    kg = fb15k_like(scale=1.0, seed=0)
+    book = partition(kg.train, cfg.n_entities, 1)
+    rp = relation_partition(kg.rel_counts(), 1)
+    prog = D.make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared)
+    like = {k: np.zeros(shape, dt) for k, (shape, dt) in prog.state_shapes().items()}
+
+    def restore_on_card(grid):
+        arrays = restore_checkpoint(str(ckpt_dir), like, step=MAIN_PATH_STEPS)
+        return D.gather_dist_state(prog, grid, D.dist_state_from_arrays(prog, grid, arrays))
+
+    same = equal(files, final)
+    restored = equal(run_world(1, 1, restore_on_card, device=dev), final)
+    print(f"  {saved.name} holds the final state bit for bit: {same} "
+          f"({sorted(files)}); restored on the card bit for bit: {restored}")
+    check(same and restored, "the distributed checkpoint does not hold or restore "
+          "the final state")
+
+    class First(engine.Hook):
+        i = None
+
+        def on_step(self, i, state, metrics, stats):
+            self.i = self.i or i
+
+    first = First()
+    train.main(["--dataset", "fb15k", "--model", "transe_l2", *base, "--steps",
+                str(RESUME_STEPS), "--log-every", "5", "--resume", *ckpt],
+               hooks=[first])
+    print(f"  resumed run's first step {first.i}, latest checkpoint "
+          f"{latest_step(str(ckpt_dir))}")
+    check(first.i == MAIN_PATH_STEPS + 1, "the resumed run did not start after step 200")
+    check(latest_step(str(ckpt_dir)) == RESUME_STEPS, "the resumed run did not save")
+
+    print(f"  TransE_l1, {DIST_L1_STEPS} steps, {' '.join(base)}")
+    metrics = engine.MetricsHook(("loss",))
+    build.reset_launches()
+    train.main(["--dataset", "fb15k", "--model", "transe_l1", *base, "--steps",
+                str(DIST_L1_STEPS), "--log-every", "25"], hooks=[metrics])
+    torch.cuda.synchronize()
+    l1_launches = dict(build.LAUNCHES)
+    loss = np.asarray(metrics.history["loss"])
+    first10, last10 = float(loss[:10].mean()), float(loss[-10:].mean())
+    print(f"  loss: first-10 mean {first10:.4f} -> last-10 mean {last10:.4f}; "
+          f"launches {l1_launches}")
+    check(np.isfinite(loss).all() and last10 < first10,
+          f"dist TransE_l1 loss did not fall: {first10} -> {last10}")
+    check_launched(l1_launches, ("pairwise_l1", "l1_bwd_pair", "dedup_aggregate",
+                                 "fused_update"), DIST_L1_STEPS)
+
+    print(f"  card (NCCL) vs CPU (gloo), 1x1 worlds, {DIST_AGREEMENT_STEPS} dim-400 "
+          "steps at batch 256, k 64, lr 0.05")
+    summary["agreement"] = {m: dist_agreement(torch, np, dev, m)
+                            for m in ("transe_l2", "distmult")}
+    # TransE_l1's gradient is a sum of signs: a last-bit change flips terms,
+    # and two CPU runs whose sums differ only in order already part beyond
+    # the rule (checked here); its card reading is printed, not gated
+    summary["agreement"]["transe_l1"] = dist_agreement(torch, np, dev, "transe_l1",
+                                                       gate=False)
+    floor = dist_sum_order_witness(np, "transe_l1")
+    summary["transe_l1_cpu_order_floor"] = floor
+    check(floor > 1e-3, "dist transe_l1: two CPU runs agree within phase 4's rule "
+          f"({floor:.2e} off), so the card should be gated on it")
+    summary["transe_l1"] = dict(loss_first10=first10, loss_last10=last10)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return {"dist_transe_l2": l2_launches, "dist_transe_l1": l1_launches}, summary
+
+
 def main() -> int:
     import torch
 
@@ -1695,10 +1959,15 @@ def main() -> int:
           "--trainers 4 --samplers 4 --metrics-out ... --trace-out ...")
     hog_launches, hog_path = run_hogwild(torch, np, dev, kg)
 
+    print("== 13. distributed: python -m repro_torch.launch.train --dataset fb15k "
+          "--distributed --mesh 1x1 (NCCL, one rank)")
+    dist_launches, dist_path = run_distributed(torch, np, dev)
+
     launches_of = {"transe_l2": l2_launches, "transe_l1": l1_launches,
                    "distmult": dm_launches, "qwen_prefill": pre_launches,
                    "qwen_serve": serve_launches, "mamba2_prefill": m_pre_launches,
-                   "mamba2_serve": m_serve_launches, **hog_launches}
+                   "mamba2_serve": m_serve_launches, **hog_launches,
+                   **dist_launches}
     kernels = []
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches_of.items()}
@@ -1721,7 +1990,8 @@ def main() -> int:
     print(json.dumps({"paths": {"transe_l2": l2_path, "transe_l1": l1_path,
                                 "distmult": dm_path, "qwen_prefill": pre_path, "qwen_serve": serve_path,
                                 "mamba2_prefill": m_pre_path,
-                                "mamba2_serve": m_serve_path, "hogwild": hog_path}}))
+                                "mamba2_serve": m_serve_path, "hogwild": hog_path,
+                                "distributed": dist_path}}))
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

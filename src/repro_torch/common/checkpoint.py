@@ -12,6 +12,10 @@ other:
     save_checkpoint(dir, step, state)            # flush deferred grads first
     state = restore_checkpoint(dir, like_state)  # shapes checked, on its device
 
+A state may also be a flat dict of tensors or numpy arrays (the
+distributed path's global state, under the reference's keys): its keys name
+the leaves, as JAX names a dict's, and a dict restores as a dict.
+
 A save writes a ``.tmp`` directory, renames it into place and keeps the
 newest ``keep`` steps.
 """
@@ -22,13 +26,15 @@ import dataclasses
 import json
 import os
 import shutil
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 
 def _leaves(state) -> Dict[str, object]:
+    if isinstance(state, Mapping):
+        return {k: v for k, v in state.items() if v is not None}
     return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
             if getattr(state, f.name) is not None}
 
@@ -36,7 +42,7 @@ def _leaves(state) -> Dict[str, object]:
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, int):
         return np.asarray(leaf, np.int32)
-    arr = leaf.detach().cpu().numpy()
+    arr = leaf.detach().cpu().numpy() if torch.is_tensor(leaf) else np.asarray(leaf)
     return arr.astype(np.int32) if arr.dtype == np.int64 else arr
 
 
@@ -83,7 +89,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None):
     """A state like ``like`` (e.g. a freshly initialised one) with the saved
     values: each tensor with ``like``'s shape (checked), dtype and device,
-    the int ``step`` as an int. ``step`` defaults to the latest."""
+    each numpy array with its shape and dtype, the int ``step`` as an int.
+    ``step`` defaults to the latest."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -97,10 +104,16 @@ def restore_checkpoint(ckpt_dir: str, like, step: Optional[int] = None):
         if info is None:
             raise KeyError(f"checkpoint at step {step} is missing leaf {key!r}")
         arr = np.load(os.path.join(src, info["file"]))
-        shape = tuple(leaf.shape) if torch.is_tensor(leaf) else ()
+        shape = tuple(np.shape(leaf))
         if tuple(arr.shape) != shape:
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"expected {shape}")
-        values[key] = (torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
-                       if torch.is_tensor(leaf) else int(arr))
+        if torch.is_tensor(leaf):
+            values[key] = torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+        elif isinstance(leaf, np.ndarray):
+            values[key] = arr.astype(leaf.dtype)
+        else:
+            values[key] = int(arr)
+    if isinstance(like, Mapping):
+        return {**like, **values}
     return dataclasses.replace(like, **values)

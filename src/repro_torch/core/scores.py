@@ -1,16 +1,21 @@
 """KGE score functions (paper Table 1) in PyTorch.
 
-A port of the JAX package's core/scores.py for one device: the dim-sharding
-context exists only as ``ShardCtx(axis=None)``, whose psum is the identity
-(the dim-striped form waits for the distributed slice). Every function
-accepts leading batch dimensions, so the step scores all negative groups at
-once with a leading group dimension instead of a loop.
+A port of the JAX package's core/scores.py. Every function takes
+embeddings that may hold only a ``d/S`` slice of the true dimension
+(dim-striping over the distributed world's model group, the KVStore
+servers). Reductions over the embedding dimension go through
+``ShardCtx.psum``; with ``axis=None`` they are plain sums (one device).
+Every function accepts leading batch dimensions, so the step scores all
+negative groups at once with a leading group dimension instead of the
+reference's ``vmap``.
 
 Layout conventions (as in the reference)
 ----------------------------------------
 * ComplEx / RotatE use an **interleaved (re, im) pair layout** along dim.
 * TransR / RESCAL store the per-relation projection flattened row-major
-  (d, rel_dim) -> (d * rel_dim,).
+  (d, rel_dim) -> (d * rel_dim,), dim-striped on the *first* (d) axis:
+  server ``s`` holds rows ``M_r[s*ds:(s+1)*ds, :]``, so ``h_s @ M_r_s`` is a
+  partial product completed by one psum.
 
 Joint-negative decomposition (paper §3.3, T1)
 ---------------------------------------------
@@ -27,7 +32,9 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.common import collectives as C
 from repro_torch.kernels.kge_score import ops as kge_score_ops
 from repro_torch.kernels.kge_score.ref import pairwise_ref
 
@@ -46,18 +53,28 @@ PAIRWISE_OF = {
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """Dim-sharding context. Only the unsharded ``axis=None`` is ported."""
+    """Dim-sharding context: the process group that stripes the embedding
+    dim (a ``launch.mesh.ProcessGrid``'s model group), or None."""
 
-    axis: None = None
+    axis: object = None
 
     def __post_init__(self):
-        if self.axis is not None:
-            raise NotImplementedError(
-                "dim-sharded scoring is not ported yet (ROADMAP Queue A, "
-                "distributed slice)")
+        if self.axis is not None and not isinstance(self.axis, dist.ProcessGroup):
+            raise TypeError(f"ShardCtx takes a torch.distributed process group "
+                            f"or None, not {self.axis!r} (a mesh axis name "
+                            f"means nothing outside JAX)")
 
     def psum(self, x):
-        return x
+        if self.axis is None:
+            return x
+        return C.psum(x, self.axis)
+
+    @property
+    def size(self) -> int:
+        return 1 if self.axis is None else dist.get_world_size(self.axis)
+
+    def index(self) -> int:
+        return 0 if self.axis is None else dist.get_rank(self.axis)
 
 
 def _cmul(a_re, a_im, b_re, b_im):
@@ -123,14 +140,33 @@ def positive_score(
     if model in ("transr", "rescal"):
         if r_proj is None or rel_dim <= 0:
             raise ValueError(f"{model} needs r_proj and rel_dim")
-        m = _proj(r_proj, h.shape[-1], rel_dim)
-        ph = ctx.psum(torch.einsum("...d,...dr->...r", h, m))
+        m = _proj(r_proj, h.shape[-1], rel_dim)  # this server's rows of M_r
+        ph = ctx.psum(torch.einsum("...d,...dr->...r", h, m))  # replicated
         if model == "rescal":
-            return ctx.psum(torch.sum(ph * t, dim=-1))
+            # h^T M_r t == (M_r^T h) . t: this server's slice of ph times t
+            return ctx.psum(torch.sum(_slice_replicated(ph, ctx) * t, dim=-1))
         pt = ctx.psum(torch.einsum("...d,...dr->...r", t, m))
-        d2 = ctx.psum(torch.sum(torch.square(ph + r - pt), dim=-1))
+        # TransR: the r slice belongs to this server, so compare slices of
+        # the replicated projections
+        rs = _slice_replicated(ph, ctx) + r - _slice_replicated(pt, ctx)
+        d2 = ctx.psum(torch.sum(torch.square(rs), dim=-1))
         return gamma - torch.sqrt(d2 + 1e-12)
     raise ValueError(model)
+
+
+def _slice_replicated(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """This server's dim slice of a replicated (..., rel_dim) tensor."""
+    if ctx.axis is None:
+        return x
+    ds = x.shape[-1] // ctx.size
+    return x.narrow(-1, ctx.index() * ds, ds)
+
+
+def _gather_full_r(r_slice: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """All-gather a (..., ds) dim slice into the full replicated (..., dim)."""
+    if ctx.axis is None:
+        return r_slice
+    return C.all_gather(r_slice, ctx.axis, axis=-1)
 
 
 # --------------------------------------------------------------------------
@@ -169,13 +205,15 @@ def neg_o(
             raise ValueError(f"{model} needs r_proj and rel_dim")
         m = _proj(r_proj, e.shape[-1], rel_dim)
         if model == "transr":
-            pe = ctx.psum(torch.einsum("...d,...dr->...r", e, m))
-            return pe + r if corrupt == "tail" else pe - r
+            pe = ctx.psum(torch.einsum("...d,...dr->...r", e, m))  # replicated
+            r_full = _gather_full_r(r, ctx)
+            return pe + r_full if corrupt == "tail" else pe - r_full
         if corrupt == "tail":
-            # score(t') = (M_r^T h) . t'
-            return ctx.psum(torch.einsum("...d,...dr->...r", e, m))
-        # score(h') = h' . (M_r t)
-        return torch.einsum("...dr,...r->...d", m, e)
+            # score(t') = (M_r^T h) . t': slice the replicated product
+            pe = ctx.psum(torch.einsum("...d,...dr->...r", e, m))
+            return _slice_replicated(pe, ctx)
+        # score(h') = h' . (M_r t): this server's d-rows of M_r times full t
+        return torch.einsum("...dr,...r->...d", m, _gather_full_r(e, ctx))
     raise ValueError(model)
 
 
@@ -193,14 +231,53 @@ def finish_neg_scores(
     model: str, partial: torch.Tensor, gamma: float, ctx: ShardCtx
 ) -> torch.Tensor:
     """psum partial pairwise reductions and convert to scores."""
-    s = ctx.psum(partial)
+    return finish_neg_scores_local(model, ctx.psum(partial), gamma)
+
+
+def negative_score_sharded(
+    model: str,
+    h_or_t: torch.Tensor,  # (..., b, ds) dim-sharded
+    r: torch.Tensor,
+    negs: torch.Tensor,  # (..., k, ds) dim-sharded candidate entities
+    corrupt: str,
+    gamma: float,
+    ctx: ShardCtx,
+    emb_scale: float = 1.0,
+    wire_dtype: Optional[str] = None,  # cast o/negs for the exchange
+) -> torch.Tensor:
+    """Negative-sharded joint scoring (the reference's beyond-paper route):
+    instead of psum-ing the full (b, k) score matrix over the dim-striped
+    servers, all-gather the per-triplet ``o`` vectors (b x d, small) and
+    re-shard the NEGATIVES over servers with an all_to_all; each server then
+    owns complete full-dim scores for its k/S negatives, and only scalar
+    loss terms cross the wire. For the elementwise-o family
+    (TransE/DistMult/ComplEx/RotatE); TransR/RESCAL use ``negative_score``.
+
+    Returns (..., b, k/S) *local* scores: reduce loss terms with a scalar
+    psum. The pairwise product goes through kernels/kge_score/ops.py.
+    """
+    if model in ("transr", "rescal") or ctx.axis is None:
+        raise ValueError(f"negative sharding needs an elementwise-o model and a "
+                         f"model group, got {model} over {ctx.axis}")
+    mode = PAIRWISE_OF[model]
+    o = neg_o(model, h_or_t, r, corrupt, ctx, emb_scale=emb_scale)
+    cdt = o.dtype if wire_dtype is None else getattr(torch, wire_dtype)
+    o_full = C.all_gather(o.to(cdt), ctx.axis, axis=-1).to(o.dtype)  # (.., b, d)
+    negs_loc = C.all_to_all(negs.to(cdt), ctx.axis, split_axis=-2,
+                            concat_axis=-1).to(negs.dtype)  # (.., k/S, d)
+    partial = kge_score_ops.pairwise_scores(mode, o_full, negs_loc)
+    return finish_neg_scores_local(model, partial, gamma)
+
+
+def finish_neg_scores_local(model: str, full: torch.Tensor, gamma: float):
+    """Like finish_neg_scores but the reduction over dim is already complete."""
     if model in ("transe_l2", "rotate", "transr"):
-        # max(s, 0) written so that its gradient at s == 0 is 0.5, as
+        # max(full, 0) written so that its gradient at 0 is 0.5, as
         # jnp.maximum's (torch.clamp_min passes 1 there); same value bit for bit
-        return gamma - torch.sqrt(0.5 * (s + s.abs()) + 1e-12)
+        return gamma - torch.sqrt(0.5 * (full + full.abs()) + 1e-12)
     if model == "transe_l1":
-        return gamma - s
-    return s  # dot-family
+        return gamma - full
+    return full
 
 
 def negative_score(

@@ -1,6 +1,14 @@
 """The one KGE train step, parameterized by embedding stores.
 
-A port of the JAX package's core/step.py for the single-machine stores.
+A port of the JAX package's core/step.py. Every trainer of the port is this
+function applied to different store backends:
+
+    single machine   stores = DenseStore(entity/rel[/proj])
+    distributed      stores = ShardedStore(entity/rel[/proj]) +
+                              ReplicatedStore(shared split relations),
+                     called on every rank of the world (core/distributed.py)
+                     with ``ctx`` over the model group
+
 The step follows the paper's update discipline (§2, §3.4, T5):
 
   1. ``flush()`` the entity store — applies the previous step's deferred
@@ -18,11 +26,12 @@ The step follows the paper's update discipline (§2, §3.4, T5):
 
 Batch normal form (what both samplers lower to):
 
-    ent_ids   (n_ws,) int64 entity rows of the workspace
-    rel_ids   (b,)    int64 relation rows of the workspace
+    ent_ids   store-address of the entity workspace (tensor / ShardedIds)
+    rel_ids   store-address of the relation workspace
     h_slot, t_slot   (b,)  workspace slots of heads / tails
     neg_slot  (MODES, ng, k) joint  |  (MODES, b, k) naive — workspace slots
     rel_slot  (b,)  relation-workspace slots
+    rel_shared (b,) optional: row in the shared relation table, -1 = owned
 
 The reference ``jax.vmap``s the joint negative score over the ``ng``
 negative groups; here the group is a leading dimension of one batched call.
@@ -30,18 +39,20 @@ negative groups; here the group is a leading dimension of one batched call.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.common import telemetry
+from repro_torch.common.collectives import all_reduce_sum, pmean
 from repro_torch.common.config import KGEConfig
 from repro_torch.core import losses as L
 from repro_torch.core import scores as S
 from repro_torch.core.sampling import MODES
 from repro_torch.embeddings.table import emb_init_scale
 
-Stores = Dict[str, object]  # "entity", "rel", optional "proj"
+Stores = Dict[str, object]  # "entity", "rel", optional "proj", "shared"
 
 
 def store_grads(
@@ -50,16 +61,22 @@ def store_grads(
     batch: Dict[str, torch.Tensor],
     *,
     neg_mode: str = "joint",
+    ctx: Optional[S.ShardCtx] = None,
+    n_servers: int = 1,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Phases 2–3: gather workspaces + loss/metrics + sparse row gradients.
 
     Returns ``({store name: workspace-row grads}, metrics)``; the metrics are
     0-d tensors (reading them synchronises with the device). Does NOT flush.
+    ``ctx`` is the dim-sharding context of a distributed rank (its model
+    group) and ``n_servers`` that group's size.
     """
-    ctx = S.ShardCtx(None)
+    ctx = S.ShardCtx(None) if ctx is None else ctx
     scale = emb_init_scale(cfg)
     h_slot, t_slot = batch["h_slot"], batch["t_slot"]
     rel_slot, neg_slot = batch["rel_slot"], batch["neg_slot"]
+    rel_shared = batch.get("rel_shared")
+    has_shared = "shared" in stores and rel_shared is not None
     has_proj = "proj" in stores
 
     # ---- 2. gather the workspaces: copies, leaves of this step's graph
@@ -67,14 +84,25 @@ def store_grads(
     rel_ws = stores["rel"].gather(batch["rel_ids"]).requires_grad_()
     proj_ws = (stores["proj"].gather(batch["rel_ids"]).requires_grad_()
                if has_proj else None)
+    shared_rows = (stores["shared"].gather(rel_shared).requires_grad_()
+                   if has_shared else None)
 
     b = h_slot.shape[0]
+    k = cfg.neg_sample_size
     ng = cfg.n_neg_groups
     model = cfg.model
+    # negative sharding (the reference's beyond-paper route): local (b, k/S)
+    # score slices + scalar loss sums, instead of summing (b, k) scores
+    sharded_negs = (neg_mode == "joint" and ctx.axis is not None
+                    and model not in ("transr", "rescal")
+                    and cfg.loss in ("logistic", "ranking")
+                    and k % n_servers == 0)
 
     # ---- 3. loss + grads w.r.t. workspace rows ONLY (sparse, paper §2)
     h, t = ws[h_slot], ws[t_slot]
     r = rel_ws[rel_slot]
+    if has_shared:
+        r = torch.where((rel_shared >= 0).unsqueeze(1), shared_rows, r)
     pr = None if proj_ws is None else proj_ws[rel_slot]
     pos = S.positive_score(model, h, r, t, cfg.gamma, ctx, r_proj=pr,
                            rel_dim=cfg.rel_dim, emb_scale=scale)
@@ -105,24 +133,45 @@ def store_grads(
             corrupt = "tail" if m == 0 else "head"
             e = (h if m == 0 else t).reshape(ng, gsz, -1)
             negs = ws[neg_slot[m]]  # (ng, k, d)
-            neg_out.append(S.negative_score(
-                model, e, rg, negs, corrupt, cfg.gamma, ctx, r_proj=prg,
-                rel_dim=cfg.rel_dim, emb_scale=scale))
+            if sharded_negs:
+                neg_out.append(S.negative_score_sharded(
+                    model, e, rg, negs, corrupt, cfg.gamma, ctx, emb_scale=scale,
+                    wire_dtype=cfg.comm_dtype))  # (ng, gsz, k/S) local
+            else:
+                neg_out.append(S.negative_score(
+                    model, e, rg, negs, corrupt, cfg.gamma, ctx, r_proj=prg,
+                    rel_dim=cfg.rel_dim, emb_scale=scale))
     else:
         raise ValueError(f"neg_mode {neg_mode!r}")
-    neg = torch.stack(neg_out)  # (MODES, ng, gsz, k) | (MODES, b, k)
-    loss = L.kge_loss(cfg.loss, torch.cat([pos, pos]),
-                      neg.reshape(MODES * b, -1), margin=cfg.gamma)
+    neg = torch.stack(neg_out)  # (MODES, ng, gsz, k or k/S) | (MODES, b, k)
+    if sharded_negs:
+        # scalar-reduced loss: the same value on every server
+        n_all = MODES * b * k
+        if cfg.loss == "logistic":
+            neg_sum = ctx.psum(torch.sum(F.softplus(neg)))
+            loss = torch.mean(F.softplus(-torch.cat([pos, pos]))) + neg_sum / n_all
+        else:  # ranking: pair each positive with its group's negatives
+            p2 = torch.stack([pos, pos]).reshape(MODES, ng, b // ng, 1)
+            hinge = torch.clamp_min(cfg.gamma - p2 + neg, 0.0)
+            loss = ctx.psum(torch.sum(hinge)) / n_all
+        neg_mean = all_reduce_sum(torch.sum(neg.detach()), ctx.axis) / n_all
+    else:
+        loss = L.kge_loss(cfg.loss, torch.cat([pos, pos]),
+                          neg.reshape(MODES * b, -1), margin=cfg.gamma)
+        neg_mean = neg.detach().mean()
 
-    leaves = [ws, rel_ws] + ([proj_ws] if has_proj else [])
+    leaves = ([ws, rel_ws] + ([shared_rows] if has_shared else [])
+              + ([proj_ws] if has_proj else []))
     # a leaf the score never reads (RESCAL's rel_ws: it reads only the
     # projection rows) gets a zero gradient, as JAX's value_and_grad gives
-    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-    out = {"entity": grads[0], "rel": grads[1]}
+    grads = list(torch.autograd.grad(loss, leaves, materialize_grads=True))
+    out = {"entity": grads.pop(0), "rel": grads.pop(0)}
+    if has_shared:
+        out["shared"] = grads.pop(0)
     if has_proj:
-        out["proj"] = grads[2]
+        out["proj"] = grads.pop(0)
     metrics = {"loss": loss.detach(), "pos_score": pos.detach().mean(),
-               "neg_score": neg.detach().mean()}
+               "neg_score": neg_mean}
     return out, metrics
 
 
@@ -134,6 +183,8 @@ def store_apply_grads(
     """Phase 4: every row update goes through ``apply_sparse_grads``."""
     stores["entity"].apply_sparse_grads(batch["ent_ids"], grads["entity"])
     stores["rel"].apply_sparse_grads(batch["rel_ids"], grads["rel"])
+    if "shared" in grads:
+        stores["shared"].apply_sparse_grads(batch["rel_shared"], grads["shared"])
     if "proj" in grads:
         stores["proj"].apply_sparse_grads(batch["rel_ids"], grads["proj"])
     return stores
@@ -145,21 +196,34 @@ def store_train_step(
     batch: Dict[str, torch.Tensor],
     *,
     neg_mode: str = "joint",
+    ctx: Optional[S.ShardCtx] = None,
+    n_servers: int = 1,
+    machine_axis=None,
 ) -> Tuple[Stores, Dict[str, torch.Tensor]]:
     """One sparse mini-batch step: flush -> ``store_grads`` ->
     ``store_apply_grads``, updating the stores in place.
 
     When the entity store defers (T5), ``metrics["pend_dropped"]`` reports
-    its capacity-bounded defer drop count.
+    its capacity-bounded defer drop count. With ``machine_axis`` (a
+    distributed rank's machine group) the metrics are averaged over the
+    machines. The backward's collectives all run inside ``store_grads``,
+    before any KVStore push of the step, in one order on every rank.
     """
     # ---- 1. flush deferred updates (T5) before gathering
     with telemetry.span("step/flush"):
         stores["entity"].flush()
     with telemetry.span("step/grad"):
-        grads, metrics = store_grads(cfg, stores, batch, neg_mode=neg_mode)
+        grads, metrics = store_grads(cfg, stores, batch, neg_mode=neg_mode,
+                                     ctx=ctx, n_servers=n_servers)
     with telemetry.span("step/apply"):
         store_apply_grads(stores, batch, grads)
     ent = stores["entity"]
     if ent.defer:
         metrics["pend_dropped"] = ent.pend_dropped
+    if machine_axis is not None:
+        names = list(metrics)
+        vals = torch.stack([torch.as_tensor(metrics[n], dtype=torch.float32,
+                                            device=metrics["loss"].device)
+                            for n in names])
+        metrics = dict(zip(names, pmean(vals, machine_axis).unbind(0)))
     return stores, metrics

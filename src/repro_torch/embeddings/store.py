@@ -1,8 +1,20 @@
-"""The embedding store of the single-machine trainer: ``DenseStore``.
+"""Pluggable embedding stores — the single update surface of the trainer.
 
-Every train step gathers rows and applies sparse gradients through the store
-and never touches tables directly (the JAX package's embeddings/store.py;
-the sharded and replicated stores wait for the distributed slice).
+Every train step gathers rows and applies sparse gradients through an
+``EmbeddingStore`` and never touches tables directly (the JAX package's
+embeddings/store.py). Three backends:
+
+* ``DenseStore``      — one whole table on one device (single machine).
+* ``ShardedStore``    — a machine-local block of a row-partitioned table
+  plus the KVStore pull/push collectives (embeddings/kvstore.py), one per
+  rank of the distributed world; with ``machine_axis=None`` (n_parts == 1)
+  the collectives degrade to local gathers.
+* ``ReplicatedStore`` — a small table replicated over machines (the
+  "shared" split relations of T4): the dense gradient is summed over the
+  machine group, then every replica takes the same dense Adagrad step.
+
+The reference's pipelined-I/O half of ``ShardedStore`` (``gather_prefetch``,
+``push_flush``, the coalesce buffers) is ROADMAP Queue A8.
 
 Update semantics (paper §3.4 + T5):
 
@@ -11,23 +23,44 @@ Update semantics (paper §3.4 + T5):
     ...compute grads w.r.t. rows...
     store = store.apply_sparse_grads(ids, g)   # apply now, or defer if overlap
 
-Unlike the JAX stores, which are functional pytrees, ``DenseStore`` updates
-``table`` and ``gsq`` IN PLACE; ``apply_sparse_grads`` and ``flush`` return
-the same store. ``gather`` copies, so an in-place update never changes rows
-that autograd saved for the step that gathered them.
+Unlike the JAX stores, which are functional pytrees, the port's stores
+update ``table`` and ``gsq`` IN PLACE; ``apply_sparse_grads`` and ``flush``
+return the same store. ``gather`` copies, so an in-place update never
+changes rows that autograd saved for the step that gathered them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Dict, NamedTuple, Protocol, Union, runtime_checkable
 
 import torch
 
 from repro_torch.common import telemetry
-from repro_torch.optim.sparse_adagrad import dedup_compact_rows, sparse_adagrad_apply
+from repro_torch.common.collectives import all_reduce_sum
+from repro_torch.embeddings.kvstore import KVStoreSpec, pull, push_remote_grads
+from repro_torch.optim.sparse_adagrad import (
+    dedup_compact_rows,
+    dense_adagrad_update,
+    sparse_adagrad_apply,
+)
 
 Snapshot = Dict[str, torch.Tensor]
+
+
+@runtime_checkable
+class EmbeddingStore(Protocol):
+    """What a train step may do with an embedding table."""
+
+    def gather(self, ids) -> torch.Tensor: ...
+
+    def apply_sparse_grads(self, ids, grads) -> "EmbeddingStore": ...
+
+    def flush(self) -> "EmbeddingStore": ...
+
+    def snapshot(self) -> Snapshot: ...
+
+    def restore(self, snap: Snapshot) -> "EmbeddingStore": ...
 
 
 def _empty_pending(table: torch.Tensor, slots: int = 0):
@@ -108,6 +141,140 @@ class DenseStore:
                 "pend_ids": self.pend_ids, "pend_grads": self.pend_grads}
 
     def restore(self, snap: Snapshot) -> "DenseStore":
+        for name, value in snap.items():
+            setattr(self, name, value)
+        return self
+
+
+# ===========================================================================
+class ShardedIds(NamedTuple):
+    """Addresses for one machine's pull: block-local rows + per-peer requests."""
+
+    local: torch.Tensor  # (L,) machine-local row ids, -1 pad
+    remote: torch.Tensor  # (n_parts, Rp) peer-local row ids, -1 pad
+
+
+@dataclasses.dataclass
+class ShardedStore:
+    """Partition-local block of a row-sharded table + KVStore collectives.
+
+    On a rank of the distributed world the collectives run over
+    ``spec.machine_axis`` (the machine group); with ``machine_axis=None``
+    (the n_parts == 1 degenerate KVStore) remote requests are served from
+    the local block and the store needs no world. ``table`` and ``gsq`` are
+    updated in place.
+    """
+
+    table: torch.Tensor  # (rows_local, d or d_shard)
+    gsq: torch.Tensor
+    pend_ids: torch.Tensor  # (Lp,) -1 pad; (0,) when defer off
+    pend_grads: torch.Tensor  # (Lp, d_shard)
+    spec: KVStoreSpec = KVStoreSpec(None, 1, 1)
+    lr: float = 0.1
+    defer: bool = False
+    # uniques dropped by the capacity-bounded defer (see DenseStore)
+    pend_dropped: Union[int, torch.Tensor] = 0
+
+    @classmethod
+    def create(cls, table: torch.Tensor, spec: KVStoreSpec, lr: float,
+               defer: bool = False, pend_slots: int = 0,
+               coalesce_slots: int = 0) -> "ShardedStore":
+        if coalesce_slots:
+            raise NotImplementedError(
+                "the coalesced push (--push-every) is not yet ported to "
+                "repro_torch: ROADMAP Queue A8 (pipelined I/O)")
+        pid, pg = _empty_pending(table, pend_slots if defer else 0)
+        return cls(table=table, gsq=torch.zeros_like(table), pend_ids=pid,
+                   pend_grads=pg, spec=spec, lr=lr, defer=defer)
+
+    def gather(self, ids: ShardedIds) -> torch.Tensor:
+        """Workspace = [local rows (L,); remote rows (n_parts * Rp,)]."""
+        return pull(self.table, ids.local, ids.remote, self.spec)
+
+    def apply_sparse_grads(self, ids: ShardedIds, grads) -> "ShardedStore":
+        """``grads`` covers the whole workspace returned by ``gather``: the
+        local rows' grads stay, the remote rows' go to their owners, and
+        every row this machine owns is updated (or parked, T5)."""
+        L = ids.local.shape[0]
+        owner_ids, owner_grads = push_remote_grads(grads[L:], ids.remote, self.spec)
+        all_ids = torch.cat([ids.local.to(torch.int32), owner_ids.to(torch.int32)])
+        all_grads = torch.cat([grads[:L], owner_grads], 0)
+        if self.defer:
+            self.pend_ids, self.pend_grads, nd = _park_pending(
+                self.pend_ids, self.pend_grads, all_ids, all_grads)
+            self.pend_dropped = self.pend_dropped + nd
+            return self
+        sparse_adagrad_apply(self.table, self.gsq, all_ids, all_grads, self.lr)
+        return self
+
+    def flush(self) -> "ShardedStore":
+        if self.pend_ids.shape[0] == 0:
+            return self
+        telemetry.inc("store/flush_calls")
+        sparse_adagrad_apply(self.table, self.gsq, self.pend_ids,
+                             self.pend_grads, self.lr)
+        self.pend_ids = torch.full_like(self.pend_ids, -1)
+        self.pend_grads = torch.zeros_like(self.pend_grads)
+        return self
+
+    def snapshot(self) -> Snapshot:
+        return {"table": self.table, "gsq": self.gsq,
+                "pend_ids": self.pend_ids, "pend_grads": self.pend_grads}
+
+    def restore(self, snap: Snapshot) -> "ShardedStore":
+        for name, value in snap.items():
+            setattr(self, name, value)
+        return self
+
+
+# ===========================================================================
+@dataclasses.dataclass
+class ReplicatedStore:
+    """Small machine-replicated table (T4 "shared" split relations).
+
+    Gradients are scattered into a full-table buffer and summed over the
+    machine group, so every replica applies the identical dense Adagrad
+    step (untouched rows get a zero gradient: an exact no-op). Without a
+    machine group the local replica takes the sparse path.
+    """
+
+    table: torch.Tensor  # (n_rows, d)
+    gsq: torch.Tensor
+    lr: float = 0.1
+    machine_axis: object = None  # the machine process group, or None
+
+    @classmethod
+    def create(cls, table: torch.Tensor, lr: float,
+               machine_axis=None) -> "ReplicatedStore":
+        return cls(table=table, gsq=torch.zeros_like(table), lr=lr,
+                   machine_axis=machine_axis)
+
+    def gather(self, ids: torch.Tensor) -> torch.Tensor:
+        """Rows for ids; -1 pads return row 0 (callers mask)."""
+        return self.table[torch.clamp_min(ids, 0).long()]
+
+    def apply_sparse_grads(self, ids, grads) -> "ReplicatedStore":
+        flat_ids = ids.reshape(-1).to(torch.int32)
+        flat_grads = grads.reshape(flat_ids.shape[0], -1)
+        if self.machine_axis is None:
+            sparse_adagrad_apply(self.table, self.gsq, flat_ids, flat_grads, self.lr)
+            return self
+        # cross-machine: the sum needs the dense full-table gradient
+        mask = (flat_ids >= 0).unsqueeze(1)
+        g = torch.zeros_like(self.table).index_add_(
+            0, torch.clamp_min(flat_ids, 0).long(),
+            torch.where(mask, flat_grads, torch.zeros_like(flat_grads)))
+        dense_adagrad_update(self.table, self.gsq,
+                             all_reduce_sum(g, self.machine_axis), self.lr)
+        return self
+
+    def flush(self) -> "ReplicatedStore":
+        return self
+
+    def snapshot(self) -> Snapshot:
+        return {"table": self.table, "gsq": self.gsq}
+
+    def restore(self, snap: Snapshot) -> "ReplicatedStore":
         for name, value in snap.items():
             setattr(self, name, value)
         return self

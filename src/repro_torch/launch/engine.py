@@ -21,9 +21,9 @@ history is asked for).
 
 Hooks see every step after it is issued, ``on_step(i, state, metrics,
 stats)`` with ``i`` the 1-based step number, then ``on_end(i, state)``
-once. A hook that flushes the deferred update (T5) does so in place on the
-loop's state (``kge_model.flush_state``), so no hook hands back a
-replacement state.
+once. ``on_end`` may return a replacement state; ``None`` keeps the current
+one. (The port's T5 flush works in place on the loop's state,
+``kge_model.flush_state``, so its hooks return ``None``.)
 
 With ``n_trainers > 1`` or ``n_samplers > 1`` the loop is the Hogwild
 multi-trainer runtime (launch/runtime.py, paper §3.1): M trainer threads
@@ -54,13 +54,14 @@ class Hook:
     def on_step(self, i: int, state, metrics, stats) -> None:
         pass
 
-    def on_end(self, i: int, state) -> None:
-        pass
+    def on_end(self, i: int, state):
+        return None
 
 
 class LoggingHook(Hook):
-    """Periodic loss/throughput lines; reading the loss synchronises with the
-    card, once every ``log_every`` steps.
+    """Periodic loss/throughput lines (and the drop rate when the sampler's
+    stats carry ``dropped``, as ``DistBatch.stats`` does); reading the loss
+    synchronises with the card, once every ``log_every`` steps.
 
     If the step metrics carry ``pend_dropped`` > 0 (capacity-bounded T5
     defer losing updates), the first occurrence raises a one-shot
@@ -78,6 +79,8 @@ class LoggingHook(Hook):
         self.start = start
         self.print_fn = print_fn
         self.t0 = None
+        self.drops = 0
+        self.saw_drops = False
         self.trainers = set()
         self.qdepth = None
         self.pend_dropped = 0.0
@@ -86,6 +89,9 @@ class LoggingHook(Hook):
     def on_step(self, i, state, metrics, stats):
         if self.t0 is None:
             self.t0 = time.perf_counter()
+        if stats and "dropped" in stats:
+            self.saw_drops = True
+            self.drops += stats["dropped"]
         if stats and "trainer" in stats:
             self.trainers.add(stats["trainer"])
         if stats and "queue_depth" in stats:
@@ -98,6 +104,8 @@ class LoggingHook(Hook):
         line = f"step {i:6d} loss {loss:8.4f} ({done/dt:6.1f} steps/s"
         if self.batch_size:
             line += f", {done*self.batch_size/dt:9.0f} triplets/s"
+            if self.saw_drops:
+                line += f", drop {self.drops/(done*self.batch_size):.2%}"
         if len(self.trainers) > 1:
             line += f", {len(self.trainers)} trainers, q={self.qdepth}"
         if "pend_dropped" in metrics:
@@ -143,11 +151,11 @@ class CheckpointHook(Hook):
         self.last_saved = i
 
     def on_step(self, i, state, metrics, stats):
-        if self.save_every and i % self.save_every == 0:
+        if self.ckpt_dir and self.save_every and i % self.save_every == 0:
             self._save(i, state)
 
     def on_end(self, i, state):
-        if self.last_saved != i:
+        if self.ckpt_dir and self.last_saved != i:
             self._save(i, state)
 
 
@@ -313,22 +321,28 @@ class TelemetryHook(Hook):
             self._file = None
         if self.trace_out:
             reg.write_trace(self.trace_out)
+        return None
 
 
 def _finish(i: int, state, hooks):
-    """The hooks' ``on_end``, in order; returns ``state``."""
+    """The hooks' ``on_end``, in order; a hook that returns a state replaces
+    the loop's. Returns the final state."""
     for h in hooks:
-        h.on_end(i, state)
+        out = h.on_end(i, state)
+        if out is not None:
+            state = out
     return state
 
 
 def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
-               hooks: Sequence[Hook] = (), n_trainers: int = 1,
-               n_samplers: int = 1, sampler_factory=None, split_step=None):
+               hooks: Sequence[Hook] = (), prefetch: bool = True,
+               n_trainers: int = 1, n_samplers: int = 1, sampler_factory=None,
+               split_step=None):
     """Drive ``step_fn`` from ``start`` (exclusive) to ``n_steps``.
 
-    make_batch() -> (batch, stats); stats may be None. Batches are produced
-    ahead on a host thread.
+    make_batch() -> (batch, stats); stats may be None. With ``prefetch``
+    batches are produced ahead on a host thread; without it each is drawn
+    inline, just before its step.
 
     ``n_trainers``/``n_samplers`` > 1 switch to the Hogwild multi-trainer
     runtime (launch/runtime.py): ``sampler_factory(worker_id)`` builds one
@@ -345,7 +359,7 @@ def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
             sampler_factory=sampler_factory, split_step=split_step)
     i = start
     if start < n_steps:
-        src = Prefetcher(make_batch)
+        src = Prefetcher(make_batch) if prefetch else iter(make_batch, object())
         try:
             for i, (batch, stats) in zip(range(start + 1, n_steps + 1), src):
                 with telemetry.span("engine/step"):
@@ -353,15 +367,17 @@ def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
                 for h in hooks:
                     h.on_step(i, state, metrics, stats)
         finally:
-            src.close()
+            if prefetch:
+                src.close()
     return _finish(i, state, hooks)
 
 
-def run_loop(step_fn, state, n_steps: int, *, hooks: Sequence[Hook] = ()):
+def run_loop(step_fn, state, n_steps: int, *, start: int = 0,
+             hooks: Sequence[Hook] = ()):
     """Batch-free loop: ``step_fn(i, state) -> (state, metrics)`` for
-    i = 0 .. n_steps - 1; hooks see the 1-based step number."""
-    i = 0
-    for i in range(1, n_steps + 1):
+    i = start .. n_steps - 1; hooks see the 1-based step number."""
+    i = start
+    for i in range(start + 1, n_steps + 1):
         with telemetry.span("engine/step"):
             state, metrics = step_fn(i - 1, state)
         for h in hooks:

@@ -1,4 +1,4 @@
-"""KGE training driver of the port (the paper's workload), single machine.
+"""KGE training entry point of the port (the paper's workload).
 
     PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
         --model transe_l1 --steps 200 --eval --eval-n 2000 \\
@@ -8,6 +8,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
         --trainers 4 --samplers 4 --steps 200 \\
         --metrics-out build/m.jsonl --trace-out build/t.json
+    PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
+        --distributed --mesh 2x2 --device cpu --steps 20 --scale 0.05
 
 runs on the GPU through the port's CUDA kernels; ``--device cpu`` runs the
 same code with the kernels' plain PyTorch versions. Without ``--device cpu``
@@ -37,12 +39,24 @@ Switchable as in the JAX package's launch/train.py:
                                    --log-every steps; a Chrome trace with one
                                    track per trainer and sampler)
 
+    --distributed --mesh MxS      (the cluster path, core/distributed.py:
+                                   M machines x S dim-striped KVStore
+                                   servers, one process per rank, launched
+                                   by this command; gloo on --device cpu,
+                                   NCCL with one rank per card on cuda)
+    --partitioner metis|random    (T3; distributed only)
+    --remote-capacity R           (KVStore remote rows per machine a step)
+    --use-kernel                  (accepted for the reference's command
+                                   lines: the port's kernels are chosen by
+                                   the device, so this trains on cuda and is
+                                   refused on --device cpu)
+
 Multi-trainer turns T5 overlap off (Hogwild already overlaps updates with
 compute; the deferred buffers are single-writer), as in the JAX package.
 
-Not ported yet, and refused with the ROADMAP item that ports them: the
-distributed path (--distributed) and pipelined I/O (--pipeline-depth,
---push-every).
+Not ported yet, and refused with the ROADMAP item that ports them:
+pipelined I/O (--pipeline-depth, --push-every), and --trainers/--samplers
+above 1 with --distributed.
 """
 
 from __future__ import annotations
@@ -57,9 +71,14 @@ import torch
 
 # flag -> ROADMAP item that ports it
 NOT_PORTED = {
-    "distributed": "Queue A7 (distributed)",
     "pipeline_depth": "Queue A8 (pipelined I/O)",
     "push_every": "Queue A8 (pipelined I/O)",
+}
+# refused with --distributed only: the whole-step StoreSlot swap of the
+# distributed step must run every rank's collectives in one order
+NOT_PORTED_DISTRIBUTED = {
+    "trainers": "Queue A7.4 (--trainers/--samplers with --distributed)",
+    "samplers": "Queue A7.4 (--trainers/--samplers with --distributed)",
 }
 
 
@@ -99,8 +118,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome trace-event JSON here (one track "
                          "per trainer and sampler)")
-    # accepted so that the reference's command lines fail loudly, not oddly
     ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--mesh", default="4x2",
+                    help="distributed: machines x servers, e.g. 2x2")
+    ap.add_argument("--partitioner", default="metis", choices=["metis", "random"])
+    ap.add_argument("--remote-capacity", type=int, default=0)
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="the reference's kernel switch: the port's kernels "
+                         "run on every CUDA tensor, so this needs --device cuda")
+    # accepted so that the reference's command lines fail loudly, not oddly
     ap.add_argument("--pipeline-depth", type=int, default=0)
     ap.add_argument("--push-every", type=int, default=1)
     return ap
@@ -131,31 +157,45 @@ def make_config(args):
         upd["neg_deg_ratio"] = args.neg_deg_ratio
     if args.no_overlap:
         upd["overlap_update"] = False
+    if args.remote_capacity:
+        upd["remote_capacity"] = args.remote_capacity
+    upd["partitioner"] = args.partitioner
     if args.model == "transr":
         upd["rel_dim"] = min(64, cfg.dim)
     return dataclasses.replace(cfg, **upd), kg
 
 
 def train(args, hooks: Sequence = ()):
-    """Single-machine training; returns ``(cfg, state)``. ``hooks`` run after
-    the entry point's own logging, telemetry, checkpoint and eval hooks.
+    """Train; returns ``(cfg, state)``: the single-machine ``KGEState``, or
+    with ``--distributed`` the global state dict (numpy, the reference's
+    keys and shapes) gathered on rank 0. ``hooks`` run after the entry
+    point's own logging, telemetry, checkpoint and eval hooks (on rank 0,
+    with rank 0's state blocks, when distributed).
 
     With ``--metrics-out`` or ``--trace-out`` an enabled telemetry registry
     is installed for the run and the previous one restored after it."""
     from repro_torch.common import telemetry
 
     defaults = build_parser().parse_args([])
-    for flag, item in NOT_PORTED.items():
+    refused = dict(NOT_PORTED, **(NOT_PORTED_DISTRIBUTED if args.distributed else {}))
+    for flag, item in refused.items():
         if getattr(args, flag) != getattr(defaults, flag):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not yet ported to repro_torch: "
-                f"ROADMAP {item}")
+                f"--{flag.replace('_', '-')} {'with --distributed ' * args.distributed}"
+                f"is not yet ported to repro_torch: ROADMAP {item}")
+    if args.use_kernel and args.device != "cuda":
+        raise ValueError(
+            "--use-kernel: the port's kernels run on CUDA tensors only, and "
+            f"--device {args.device} runs their plain versions; drop "
+            "--use-kernel, or train on --device cuda (where every step "
+            "launches the kernels)")
+    run = _train_distributed if args.distributed else _train
     if not (args.metrics_out or args.trace_out):
-        return _train(args, hooks)
+        return run(args, hooks)
     prev = telemetry.set_registry(
         telemetry.MetricsRegistry(enabled=True, trace=bool(args.trace_out)))
     try:
-        return _train(args, hooks)
+        return run(args, hooks)
     finally:
         telemetry.set_registry(prev)
 
@@ -243,6 +283,88 @@ def _train(args, hooks):
                        n_trainers=args.trainers, n_samplers=args.samplers,
                        sampler_factory=sampler_factory, split_step=split_step)
     return cfg, state
+
+
+def _train_distributed(args, hooks):
+    from repro_torch.common.device import resolve_device
+    from repro_torch.launch.mesh import parse_mesh, run_world
+
+    M, S = parse_mesh(args.mesh)
+    dev = resolve_device(args.device)
+    return run_world(M, S, _dist_rank, (args,), device=dev,
+                     rank0_kwargs=dict(hooks=tuple(hooks)))
+
+
+def _dist_rank(grid, args, hooks=()):
+    """One rank of ``--distributed``: the reference's
+    ``launch/train.py::_train_distributed`` on this rank's blocks. Rank 0
+    prints, logs, writes the telemetry files and the checkpoints (the
+    global state, gathered from every rank), and runs ``hooks``."""
+    from repro_torch.common.checkpoint import (
+        latest_step, restore_checkpoint, save_checkpoint,
+    )
+    from repro_torch.core.distributed import (
+        batch_to_rank, build_dist_train_step, dist_state_from_arrays,
+        gather_dist_state, init_dist_state, make_program,
+    )
+    from repro_torch.core.graph_part import cut_fraction, partition
+    from repro_torch.core.rel_part import relation_partition
+    from repro_torch.core.sampling import DistSampler
+    from repro_torch.launch.engine import (
+        CheckpointHook, LoggingHook, TelemetryHook, train_loop,
+    )
+
+    lead = grid.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    cfg, kg = make_config(args)
+    n_parts = grid.M
+    cfg = dataclasses.replace(cfg, n_parts=n_parts)
+    say(f"graph: {kg.n_entities} entities, {kg.n_relations} relations, "
+        f"{kg.triplets.shape[0]} triplets; mesh {grid.M}x{grid.S}, "
+        f"{grid.world} ranks on {grid.device.type}")
+    book = partition(kg.train, cfg.n_entities, n_parts, method=args.partitioner,
+                     seed=args.seed)
+    say(f"partitioner={args.partitioner} cut={cut_fraction(kg.train, book.part_of):.3f}")
+    rp = relation_partition(kg.rel_counts(), n_parts, seed=args.seed)
+    prog = make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared)
+    sampler = DistSampler(kg.train, book, rp, cfg, np.random.default_rng(args.seed))
+    step = build_dist_train_step(prog, grid)
+
+    start = 0
+    if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        like = {name: np.zeros(shape, dt)
+                for name, (shape, dt) in prog.state_shapes().items()}
+        state = dist_state_from_arrays(prog, grid,
+                                       restore_checkpoint(args.ckpt_dir, like))
+        start = state["step"]
+        say(f"resumed from step {start}")
+    else:
+        state = init_dist_state(prog, grid, args.seed)
+
+    def make_batch():
+        db = sampler.sample()
+        return batch_to_rank(db, grid), db.stats
+
+    def save(ckpt_dir, i, st):
+        full = gather_dist_state(prog, grid, st)  # every rank takes part
+        if lead:
+            save_checkpoint(ckpt_dir, i, full)
+
+    own = []
+    if lead:
+        own.append(LoggingHook(args.log_every, batch_size=cfg.batch_size * n_parts,
+                               start=start))
+        if args.metrics_out or args.trace_out:
+            own.append(TelemetryHook(metrics_out=args.metrics_out or None,
+                                     trace_out=args.trace_out or None,
+                                     every=max(1, args.log_every)))
+    if args.ckpt_dir:
+        own.append(CheckpointHook(args.ckpt_dir, args.save_every, save_fn=save))
+    state = train_loop(step, state, make_batch, args.steps, start=start,
+                       hooks=[*own, *hooks])
+    final = gather_dist_state(prog, grid, state)
+    say("done")
+    return cfg, final
 
 
 def main(argv=None, hooks: Sequence = ()):

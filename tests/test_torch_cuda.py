@@ -916,3 +916,59 @@ def test_hogwild_launches_each_kernel_twice_a_step(cuda, model, kernels):
     assert all(np.isfinite(mh.history["loss"]))
     for name in kernels:
         assert build.LAUNCHES[name] == 80, (name, build.LAUNCHES[name])
+
+
+# ---------------------------------------------------------------------------
+# the distributed path: a 1x1 NCCL world on the card against a 1x1 gloo
+# world on the CPU
+# ---------------------------------------------------------------------------
+def _dist_setup(model, steps=3):
+    from repro_torch.common.config import KGEConfig
+    from repro_torch.core import distributed as D
+    from repro_torch.core.graph_part import partition
+    from repro_torch.core.rel_part import relation_partition
+    from repro_torch.core.sampling import DistSampler
+    from repro_torch.data.kg_synth import make_synthetic_kg
+
+    kg = make_synthetic_kg(n_entities=600, n_relations=24, n_edges=9000,
+                           n_clusters=6, seed=0)
+    cfg = KGEConfig(model=model, n_entities=kg.n_entities, n_relations=kg.n_relations,
+                    dim=64, batch_size=64, neg_sample_size=32, lr=0.05, n_parts=1,
+                    remote_capacity=64)
+    book = partition(kg.train, cfg.n_entities, 1)
+    rp = relation_partition(kg.rel_counts(), 1)
+    prog = D.make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared)
+    sampler = DistSampler(kg.train, book, rp, cfg, np.random.default_rng(0))
+    return prog, D.init_dist_arrays(prog, 0), [sampler.sample() for _ in range(steps)]
+
+
+@pytest.mark.parametrize("model,kernels", [
+    ("transe_l2", ("pairwise_l2sq", "dedup_aggregate", "fused_update")),
+    ("transe_l1", ("pairwise_l1", "l1_bwd_pair", "dedup_aggregate", "fused_update")),
+    ("distmult", ("pairwise_dot", "dedup_aggregate", "fused_update")),
+])
+def test_dist_world_of_one_matches_cpu(cuda, model, kernels):
+    """Three steps through ``run_batches`` in a 1x1 NCCL world (kernels) and
+    a 1x1 gloo world (plain versions), from one state and batch list: the
+    losses within 1e-5, the tables under the Adagrad-flip rule (every entry
+    within 1e-5 but for 0.1% of them, those within 2 lr a step), and each
+    kernel of the path launched at least twice a step."""
+    from repro_torch.core.distributed import run_batches
+    from repro_torch.launch.mesh import run_world
+
+    prog, init, batches = _dist_setup(model)
+    build.reset_launches()
+    h_dev, got = run_world(1, 1, run_batches, (prog, init, batches), device=cuda)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    h_cpu, want = run_world(1, 1, run_batches, (prog, init, batches), device="cpu")
+    np.testing.assert_allclose([m["loss"] for m in h_dev], [m["loss"] for m in h_cpu],
+                               rtol=1e-5, atol=1e-5)
+    for name in kernels:
+        assert launches[name] >= 2 * len(batches), (name, launches[name])
+    np.testing.assert_array_equal(got["pend_ids"], want["pend_ids"])
+    assert got["step"] == want["step"] == len(batches)
+    for name in ("entity", "ent_gsq", "r_emb", "rel_gsq", "shared_rel", "pend_grads"):
+        diff = np.abs(got[name] - want[name])
+        assert (diff > 1e-5 + 1e-5 * np.abs(want[name])).mean() <= 1e-3, name
+        assert diff.max() <= 2 * prog.cfg.lr * len(batches), name

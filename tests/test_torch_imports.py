@@ -43,7 +43,10 @@ def test_port_modules_exist():
               "repro_torch.kernels.flash_attention.ops", "repro_torch.models.transformer",
               "repro_torch.models.steps", "repro_torch.launch.serve",
               "repro_torch.models.ssm", "repro_torch.kernels.ssd_scan.ops",
-              "repro_torch.kernels.ssd_scan.ref"):
+              "repro_torch.kernels.ssd_scan.ref", "repro_torch.core.distributed",
+              "repro_torch.core.graph_part", "repro_torch.core.rel_part",
+              "repro_torch.embeddings.kvstore", "repro_torch.common.collectives",
+              "repro_torch.launch.mesh"):
         assert m in mods
 
 

@@ -112,8 +112,11 @@ def test_plain_pairwise_scores(mode):
 
 
 def test_shard_ctx_is_single_device_only():
-    assert TS.ShardCtx().psum(3.0) == 3.0
-    with pytest.raises(NotImplementedError):
+    """Without a process group the context is one device's: psum is the
+    identity. A JAX mesh axis name is no group in the port."""
+    ctx = TS.ShardCtx()
+    assert ctx.psum(3.0) == 3.0 and ctx.size == 1 and ctx.index() == 0
+    with pytest.raises(TypeError):
         TS.ShardCtx(axis="model")
 
 

@@ -188,9 +188,17 @@ def test_cli_trains_rescal_and_leaves_its_relation_rows():
 def test_cli_refuses_unported_modes():
     from repro_torch.launch import train
 
-    for flags, item in ((["--distributed"], "A7"), (["--push-every", "2"], "A8")):
+    for flags, item in ((["--push-every", "2"], "A8"),
+                        (["--pipeline-depth", "1"], "A8"),
+                        (["--distributed", "--push-every", "2"], "A8"),
+                        (["--distributed", "--trainers", "2"], "A7.4"),
+                        (["--distributed", "--samplers", "2"], "A7.4")):
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--device", "cpu", *flags])
+    # the port's kernels are chosen by the tensors' device: --use-kernel
+    # trains on cuda and is refused on the CPU, where nothing launches them
+    with pytest.raises(ValueError, match="--use-kernel"):
+        train.main(["--device", "cpu", "--use-kernel"])
 
 
 def test_cli_hogwild_trains_exact_steps_and_writes_valid_files(tmp_path):
