@@ -158,6 +158,8 @@ HOGWILD_TOL = 0.15  # 1 vs 4 trainers, last-30 loss means: JAX's rule
 DIST_DIR = ROOT / "build" / "chip_smoke_dist"
 DIST_L1_STEPS = 50
 DIST_AGREEMENT_STEPS = 3
+PIPE_DIR = ROOT / "build" / "chip_smoke_pipe"
+PIPE_PUSH_EVERY = 4
 # flash attention, (B, H, Hkv, T, S, dh, window, q_offset, dtype); the first
 # is what the Qwen prefill path launches
 FLASH_SHAPES = {
@@ -525,6 +527,15 @@ def check_dedup(torch, np, dev, gen, kg):
              "entity_pads": _dedup_ids(torch, gen, 2560, 14951),
              "relation_pads": _dedup_ids(torch, gen, 1024, 1345)}
     cases["dist_entity_flush"], cases["dist_relation"] = dist_path_ids(torch, np, kg)
+    # phase 14: the entity apply of its local slots, and the coalesced
+    # push's flush of P * Ck = 4,096 merged slots (all pads on one card;
+    # here unique rows and pads, as a flush of several machines holds,
+    # drawn apart so that the other cases' inputs stay as they were)
+    cases["pipe_entity_local"] = cases["dist_entity_flush"][:3584]
+    own = torch.Generator().manual_seed(6)
+    flush = torch.randperm(14952, generator=own)[:4096].to(torch.int32)
+    flush[torch.rand(4096, generator=own) < 0.5] = -1
+    cases["pipe_flush"] = flush
     err, tol, timed = 0.0, 0.0, {}
     for case, ids in cases.items():
         n, D = ids.numel(), 400
@@ -569,8 +580,10 @@ def check_update(torch, dev, gen):
     lr, eps, err, tol, timed = 0.25, 1e-10, 0.0, 0.0, {}
     # the single path's entity and relation applies, then phase 13's flush
     # of 5,632 pend slots into its 14,952-row block and its 1,280-slot
-    # relation apply
-    for n, n_rows in ((2560, 14951), (1024, 1345), (5632, 14952), (1280, 1352)):
+    # relation apply, then phase 14's apply of its 3,584 local slots and
+    # its coalesced push's flush of 4,096
+    for n, n_rows in ((2560, 14951), (1024, 1345), (5632, 14952), (1280, 1352),
+                      (3584, 14952), (4096, 14952)):
         D = 400
         table = torch.randn(n_rows, D, generator=gen).to(dev)
         gsq = torch.rand(n_rows, D, generator=gen).to(dev)
@@ -616,7 +629,11 @@ def check_update(torch, dev, gen):
                                "dist_entity_flush": {"shape": "14952x400, n=5632",
                                                      **timed[5632]},
                                "dist_relation": {"shape": "1352x400, n=1280",
-                                                 **timed[1280]}})]
+                                                 **timed[1280]},
+                               "pipe_entity_local": {"shape": "14952x400, n=3584",
+                                                     **timed[3584]},
+                               "pipe_flush": {"shape": "14952x400, n=4096",
+                                              **timed[4096]}})]
 
 
 def _attn_mask(torch, dev, T, S, window, q_offset):
@@ -965,7 +982,8 @@ def run_path(torch, np, model, extra, timed_from, hooks=()):
                 if self.prof is not None:
                     self.prof.stop()
 
-    metrics = engine.MetricsHook(("loss", "pos_score", "neg_score", "pend_dropped"))
+    metrics = engine.MetricsHook(("loss", "pos_score", "neg_score", "pend_dropped",
+                                  "push_dropped"))
     timing = Window(timed_from, steps - 50)  # steady state, untraced
     traced = Window(steps - 40, steps - 20, profile=True)
     tee = _Tee(sys.stdout)
@@ -1007,7 +1025,11 @@ def run_path(torch, np, model, extra, timed_from, hooks=()):
     print(f"  launches in the run: {launches}")
     check(np.isfinite(loss).all(), "non-finite loss")
     check(last < first, f"loss did not fall: {first} -> {last}")
-    check(max(hist["pend_dropped"]) == 0, "deferred update dropped rows")
+    # a key a path does not report reads nan: T5 off, or no coalesced push
+    for key, what in (("pend_dropped", "deferred update"),
+                      ("push_dropped", "coalesced push")):
+        check(all(v == 0 for v in hist[key] if not math.isnan(v)),
+              f"{what} dropped rows")
     if isinstance(state, dict):  # --distributed: the global state, numpy
         check(state["entity"].shape[1] == cfg.dim
               and all(np.isfinite(state[k]).all() for k in ("entity", "r_emb")),
@@ -1654,12 +1676,14 @@ def run_hogwild(torch, np, dev, kg):
 # ---------------------------------------------------------------------------
 DIST_TABLES = ("entity", "ent_gsq", "r_emb", "rel_gsq", "shared_rel", "shared_gsq",
                "pend_grads")
+DIST_BUFFERS = ("pf_ent_ws", "pf_rel_ws", "co_grads")  # pipelined I/O (phase 14)
 
 
-def dist_case(np, model):
+def dist_case(np, model, pipeline_depth=0, push_every=1):
     """Phase 13's agreement case: ``model`` at dim 400, batch 256, k 64 and
     lr 0.05 on a small synthetic graph, n_parts 1: (prog, initial global
-    arrays, DIST_AGREEMENT_STEPS DistBatches)."""
+    arrays, DIST_AGREEMENT_STEPS DistBatches, one more to prefetch at
+    depth 1). Phase 14 passes the pipelined program's flags."""
     import dataclasses
 
     from repro_torch.core import distributed as D
@@ -1671,23 +1695,27 @@ def dist_case(np, model):
     kg = fb15k_like(scale=0.05, seed=1)
     cfg = dataclasses.replace(fb15k_config(kg, model), batch_size=256,
                               neg_sample_size=64, lr=0.05, n_parts=1)
+    if pipeline_depth or push_every > 1:  # T5 off, as the CLI turns it off
+        cfg = dataclasses.replace(cfg, overlap_update=False)
     book = partition(kg.train, cfg.n_entities, 1)
     rp = relation_partition(kg.rel_counts(), 1)
-    prog = D.make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared)
+    prog = D.make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared,
+                          pipeline_depth=pipeline_depth, push_every=push_every)
     sampler = DistSampler(kg.train, book, rp, cfg, np.random.default_rng(1))
     return (prog, D.init_dist_arrays(prog, 1),
-            [sampler.sample() for _ in range(DIST_AGREEMENT_STEPS)])
+            [sampler.sample() for _ in range(DIST_AGREEMENT_STEPS + pipeline_depth)])
 
 
 def dist_compare(np, what, got, want, lr):
     """Phase 4's rule on two ``run_batches`` results: (losses within 1e-5,
     {table: (max diff, share of entries off 1e-5)}, every table within the
-    rule, pend ids equal)."""
+    rule, pend ids equal). A pipelined state's prefetch and merge buffers
+    count as tables, and its merge ids must be equal too."""
     (h_got, s_got), (h_want, s_want) = got, want
     l_got, l_want = [m["loss"] for m in h_got], [m["loss"] for m in h_want]
     print(f"  {what}: losses {l_got} vs {l_want}")
     tables = {}
-    for name in DIST_TABLES:
+    for name in DIST_TABLES + tuple(k for k in DIST_BUFFERS if k in s_want):
         diff = np.abs(s_got[name] - s_want[name])
         tables[name] = (float(diff.max()),
                         float((diff > 1e-5 + 1e-5 * np.abs(s_want[name])).mean()))
@@ -1696,26 +1724,28 @@ def dist_compare(np, what, got, want, lr):
     return (np.allclose(l_got, l_want, rtol=1e-5, atol=1e-5), tables,
             all(off <= 1e-3 and most <= 2 * lr * DIST_AGREEMENT_STEPS
                 for most, off in tables.values()),
-            np.array_equal(s_got["pend_ids"], s_want["pend_ids"]))
+            all(np.array_equal(s_got[k], s_want[k]) for k in ("pend_ids", "co_ids")
+                if k in s_want))
 
 
-def dist_agreement(torch, np, dev, model, gate=True):
-    """``run_batches`` of ``dist_case(model)`` in a 1x1 world on the card
-    (NCCL, kernels) and in a 1x1 gloo world on the CPU (plain versions),
-    from one carried-over global state and one list of DistBatches; with
-    ``gate``, phase 4's rule must hold."""
+def dist_agreement(torch, np, dev, model, gate=True, **prog_kw):
+    """``run_batches`` of ``dist_case(model, **prog_kw)`` in a 1x1 world on
+    the card (NCCL, kernels) and in a 1x1 gloo world on the CPU (plain
+    versions), from one carried-over global state and one list of
+    DistBatches; with ``gate``, phase 4's rule must hold."""
     from repro_torch.core import distributed as D
     from repro_torch.launch.mesh import run_world
 
-    prog, init, batches = dist_case(np, model)
+    prog, init, batches = dist_case(np, model, **prog_kw)
+    what = f"dist {model}" + "".join(f" {k}={v}" for k, v in prog_kw.items())
     runs = {d: run_world(1, 1, D.run_batches, (prog, init, batches), device=d)
             for d in (dev, "cpu")}
     losses_ok, tables, tables_ok, ids_ok = dist_compare(
-        np, f"dist {model} card vs cpu", runs[dev], runs["cpu"], prog.cfg.lr)
+        np, f"{what} card vs cpu", runs[dev], runs["cpu"], prog.cfg.lr)
     if gate:
-        check(losses_ok, f"dist {model}: card and CPU losses disagree")
-        check(tables_ok, f"dist {model}: card and CPU tables disagree")
-        check(ids_ok, f"dist {model}: card and CPU pend ids differ")
+        check(losses_ok, f"{what}: card and CPU losses disagree")
+        check(tables_ok, f"{what}: card and CPU tables disagree")
+        check(ids_ok, f"{what}: card and CPU pend or merge ids differ")
     return {name: dict(max_diff=most, share_off=off)
             for name, (most, off) in tables.items()}
 
@@ -1857,6 +1887,161 @@ def run_distributed(torch, np, dev):
     return {"dist_transe_l2": l2_launches, "dist_transe_l1": l1_launches}, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 14: pipelined KVStore I/O, a 1x1 NCCL world on the card
+# ---------------------------------------------------------------------------
+def merge_time(torch, dev):
+    """The coalesced push's merge of one step at phase 14's shapes (one
+    peer, Ck = 4,096 buffered slots, Rp = 2,048 arriving, D = 400), by
+    kernel, printed and not gated: the sort-based route of the reference
+    runs as plain PyTorch ops, no hand-written kernel. Half the buffer
+    holds unique rows and half the arrivals are pads, as a world of
+    several machines would send."""
+    from repro_torch.embeddings.store import _coalesce_remote
+
+    gen = torch.Generator().manual_seed(7)
+    ck, rp, D, rows = 4096, 2048, 400, 14952
+    co_ids = torch.full((1, ck), -1, dtype=torch.int32)
+    co_ids[0, :ck // 2] = torch.randperm(rows, generator=gen)[:ck // 2].to(torch.int32)
+    co_grads = torch.randn(1, ck, D, generator=gen) * (co_ids >= 0).unsqueeze(-1)
+    req = torch.randint(0, rows, (1, rp), generator=gen, dtype=torch.int32)
+    req[torch.rand(1, rp, generator=gen) < 0.5] = -1
+    g = torch.randn(1, rp, D, generator=gen)
+    co_ids, co_grads, req, g = (x.to(dev) for x in (co_ids, co_grads, req, g))
+
+    def merge():  # on copies: every call merges into the same buffer
+        _coalesce_remote(co_ids.clone(), co_grads.clone(), req, g)
+
+    by_kernel = {k: us / 20 for k, us in trace_by_kernel(torch, merge, 20).items()}
+    total = sum(by_kernel.values())
+    print(f"  the merge of one step (sort-based, 6,144 x {D} rows in, {ck} kept): "
+          f"device {total:.1f} us a call (two buffer copies included), "
+          f"{event_ms(torch, merge, 20) * 1e3:.1f} us by CUDA events; by kernel:")
+    for k, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {us:8.2f} us  {k[:90]}")
+    return dict(device_us=total, by_kernel=by_kernel)
+
+
+def run_pipelined(torch, np, dev, eager):
+    """Phase 14, beside phase 13's summary ``eager``. Returns ({run:
+    launches}, summary)."""
+    from repro_torch.common.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.core import distributed as D
+    from repro_torch.core.graph_part import partition
+    from repro_torch.core.rel_part import relation_partition
+    from repro_torch.data.kg_synth import fb15k_like
+    from repro_torch.kernels import build
+    from repro_torch.launch import engine, train
+    from repro_torch.launch.mesh import run_world
+
+    base = ["--distributed", "--mesh", "1x1", "--pipeline-depth", "1"]
+    k = PIPE_PUSH_EVERY
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    PIPE_DIR.mkdir(parents=True)
+    ckpt_dir, m_path = PIPE_DIR / "ckpt", PIPE_DIR / "m.jsonl"
+    ckpt = ["--ckpt-dir", str(ckpt_dir), "--save-every", "100"]
+    print(f"  TransE_l2, {MAIN_PATH_STEPS} steps, {' '.join(base)} --push-every {k} "
+          f"{' '.join(ckpt)} --metrics-out {m_path.relative_to(ROOT)}")
+    launches, summary, cfg, final, out = run_path(
+        torch, np, "transe_l2",
+        [*base, "--push-every", str(k), *ckpt, "--metrics-out", str(m_path)], 100)
+    check("pipelined KVStore I/O: T5 overlap off" in out, "no T5-off line")
+    flushes = MAIN_PATH_STEPS // k
+    want = {"pairwise_l2sq": 2 * MAIN_PATH_STEPS,
+            "dedup_aggregate": 2 * MAIN_PATH_STEPS + flushes,
+            "fused_update": 2 * MAIN_PATH_STEPS + flushes}
+    got = {name: n for name, n in launches.items() if n}
+    print(f"  launches {got}, expected exactly {want}")
+    check(got == want, f"pipelined launches {got} != {want}")
+    snap = json.loads(m_path.read_text().splitlines()[-1])
+    kv = {name: v for name, v in {**snap["counters"], **snap["gauges"]}.items()
+          if name.startswith("kvstore/")}
+    print(f"  kvstore counters at step {snap.get('step')}: {kv}")
+    check(kv.get("kvstore/coalesced_push_flushes") == flushes,
+          f"{kv.get('kvstore/coalesced_push_flushes')} flushes, not {flushes}")
+    check(kv.get("kvstore/prefetch_rows", 0) > 0, "no kvstore/prefetch_rows")
+    summary["kvstore"] = kv
+    for what, run in (("pipelined", summary), ("eager (phase 13)", eager)):
+        print(f"  {what}: step {run['step_ms']:.4f} ms, device "
+              f"{run['device_ms_per_step'] * 1e3:.1f} us a step, idle "
+              f"{1 - run['device_busy']:.1%}")
+    summary["eager"] = {name: eager[name] for name in
+                        ("step_ms", "device_ms_per_step", "device_busy")}
+    summary["merge"] = merge_time(torch, dev)
+
+    # the checkpoint of step 200 (after its flush: merge ids all pads)
+    # holds the final global state and restores on the card bit for bit
+    saved = ckpt_dir / f"step_{MAIN_PATH_STEPS:010d}"
+    files = {p.stem: np.load(p) for p in saved.glob("*.npy")}
+    kg = fb15k_like(scale=1.0, seed=0)
+    book = partition(kg.train, cfg.n_entities, 1)
+    rp = relation_partition(kg.rel_counts(), 1)
+    prog = D.make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared,
+                          pipeline_depth=1, push_every=k)
+    like = {name: np.zeros(shape, dt) for name, (shape, dt) in prog.state_shapes().items()}
+
+    def restore_on_card(grid):
+        arrays = restore_checkpoint(str(ckpt_dir), like, step=MAIN_PATH_STEPS)
+        return D.gather_dist_state(prog, grid, D.dist_state_from_arrays(prog, grid, arrays))
+
+    def equal(x, y):
+        return set(x) == set(y) and all(
+            np.asarray(x[n]).dtype == np.asarray(y[n]).dtype
+            and np.array_equal(x[n], y[n]) for n in x)
+
+    same = equal(files, final) and set(files) == set(like)
+    restored = equal(run_world(1, 1, restore_on_card, device=dev), final)
+    pads = bool((final["co_ids"] == -1).all())
+    print(f"  {saved.name} holds the final state bit for bit: {same} ({sorted(files)}); "
+          f"merge ids all pads: {pads}; restored on the card bit for bit: {restored}")
+    check(same and restored and pads, "the pipelined checkpoint does not hold or "
+          "restore the final state")
+
+    class First(engine.Hook):
+        i = None
+
+        def on_step(self, i, state, metrics, stats):
+            self.i = self.i or i
+
+    first = First()
+    train.main(["--dataset", "fb15k", "--model", "transe_l2", *base, "--push-every",
+                str(k), "--steps", str(RESUME_STEPS), "--log-every", "5", "--resume",
+                *ckpt], hooks=[first])
+    print(f"  resumed run's first step {first.i}, latest checkpoint "
+          f"{latest_step(str(ckpt_dir))}")
+    check(first.i == MAIN_PATH_STEPS + 1, "the resumed run did not start after step 200")
+    check(latest_step(str(ckpt_dir)) == RESUME_STEPS, "the resumed run did not save")
+
+    print(f"  TransE_l1, {DIST_L1_STEPS} steps, {' '.join(base)} --push-every 2")
+    metrics = engine.MetricsHook(("loss",))
+    build.reset_launches()
+    train.main(["--dataset", "fb15k", "--model", "transe_l1", *base, "--push-every", "2",
+                "--steps", str(DIST_L1_STEPS), "--log-every", "25"], hooks=[metrics])
+    torch.cuda.synchronize()
+    l1_launches = dict(build.LAUNCHES)
+    loss = np.asarray(metrics.history["loss"])
+    first10, last10 = float(loss[:10].mean()), float(loss[-10:].mean())
+    print(f"  loss: first-10 mean {first10:.4f} -> last-10 mean {last10:.4f}; "
+          f"launches {l1_launches}")
+    check(np.isfinite(loss).all() and last10 < first10,
+          f"pipelined TransE_l1 loss did not fall: {first10} -> {last10}")
+    for name in ("pairwise_l1", "l1_bwd_pair"):
+        check(l1_launches[name] == 2 * DIST_L1_STEPS,
+              f"{name} launched {l1_launches[name]} times in {DIST_L1_STEPS} steps")
+
+    print(f"  card (NCCL) vs CPU (gloo), 1x1 worlds, {DIST_AGREEMENT_STEPS} dim-400 "
+          "steps at batch 256, k 64, lr 0.05, --pipeline-depth 1 --push-every 2")
+    pipe = dict(pipeline_depth=1, push_every=2)
+    summary["agreement"] = {m: dist_agreement(torch, np, dev, m, **pipe)
+                            for m in ("transe_l2", "distmult")}
+    # TransE_l1 printed, not gated: phase 13's reason
+    summary["agreement"]["transe_l1"] = dist_agreement(torch, np, dev, "transe_l1",
+                                                       gate=False, **pipe)
+    summary["transe_l1"] = dict(loss_first10=first10, loss_last10=last10)
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    return {"pipe_transe_l2": launches, "pipe_transe_l1": l1_launches}, summary
+
+
 def main() -> int:
     import torch
 
@@ -1963,11 +2148,16 @@ def main() -> int:
           "--distributed --mesh 1x1 (NCCL, one rank)")
     dist_launches, dist_path = run_distributed(torch, np, dev)
 
+    print("== 14. pipelined KVStore I/O: python -m repro_torch.launch.train --dataset "
+          f"fb15k --distributed --mesh 1x1 --pipeline-depth 1 --push-every "
+          f"{PIPE_PUSH_EVERY} (NCCL, one rank)")
+    pipe_launches, pipe_path = run_pipelined(torch, np, dev, dist_path)
+
     launches_of = {"transe_l2": l2_launches, "transe_l1": l1_launches,
                    "distmult": dm_launches, "qwen_prefill": pre_launches,
                    "qwen_serve": serve_launches, "mamba2_prefill": m_pre_launches,
                    "mamba2_serve": m_serve_launches, **hog_launches,
-                   **dist_launches}
+                   **dist_launches, **pipe_launches}
     kernels = []
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches_of.items()}
@@ -1991,7 +2181,7 @@ def main() -> int:
                                 "distmult": dm_path, "qwen_prefill": pre_path, "qwen_serve": serve_path,
                                 "mamba2_prefill": m_pre_path,
                                 "mamba2_serve": m_serve_path, "hogwild": hog_path,
-                                "distributed": dist_path}}))
+                                "distributed": dist_path, "pipelined": pipe_path}}))
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

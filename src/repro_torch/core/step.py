@@ -23,6 +23,9 @@ The step follows the paper's update discipline (§2, §3.4, T5):
 
 ``store_grads`` is phases 2–3 and ``store_apply_grads`` phase 4;
 ``store_train_step`` composes them on one (flushed) store set.
+``store_pipelined_step`` is the depth-1 pipelined step of the distributed
+path (``--pipeline-depth 1``): grads against the workspaces the previous
+step prefetched, then the pull for the next batch, then the apply.
 
 Batch normal form (what both samplers lower to):
 
@@ -63,6 +66,7 @@ def store_grads(
     neg_mode: str = "joint",
     ctx: Optional[S.ShardCtx] = None,
     n_servers: int = 1,
+    prefetched: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Phases 2–3: gather workspaces + loss/metrics + sparse row gradients.
 
@@ -70,6 +74,11 @@ def store_grads(
     0-d tensors (reading them synchronises with the device). Does NOT flush.
     ``ctx`` is the dim-sharding context of a distributed rank (its model
     group) and ``n_servers`` that group's size.
+
+    ``prefetched`` (the pipelined path) supplies the entity and relation
+    workspaces the previous step pulled: the two gathers are skipped, and
+    the gradients are computed against those one-step-stale rows (copies,
+    so they become this step's leaves as gathered rows do).
     """
     ctx = S.ShardCtx(None) if ctx is None else ctx
     scale = emb_init_scale(cfg)
@@ -79,9 +88,14 @@ def store_grads(
     has_shared = "shared" in stores and rel_shared is not None
     has_proj = "proj" in stores
 
-    # ---- 2. gather the workspaces: copies, leaves of this step's graph
-    ws = stores["entity"].gather(batch["ent_ids"]).requires_grad_()
-    rel_ws = stores["rel"].gather(batch["rel_ids"]).requires_grad_()
+    # ---- 2. gather the workspaces (or take the previous step's prefetch):
+    # copies, leaves of this step's graph
+    if prefetched is None:
+        ws = stores["entity"].gather(batch["ent_ids"])
+        rel_ws = stores["rel"].gather(batch["rel_ids"])
+    else:
+        ws, rel_ws = prefetched["entity"].detach(), prefetched["rel"].detach()
+    ws, rel_ws = ws.requires_grad_(), rel_ws.requires_grad_()
     proj_ws = (stores["proj"].gather(batch["rel_ids"]).requires_grad_()
                if has_proj else None)
     shared_rows = (stores["shared"].gather(rel_shared).requires_grad_()
@@ -220,10 +234,65 @@ def store_train_step(
     ent = stores["entity"]
     if ent.defer:
         metrics["pend_dropped"] = ent.pend_dropped
+    return stores, _finish_metrics(ent, metrics, machine_axis)
+
+
+def _finish_metrics(ent, metrics, machine_axis):
+    """Add the coalesced push's drop count when the entity store coalesces,
+    then average the metrics over the machines (with ``machine_axis``)."""
+    if getattr(ent, "coalesce", False):
+        metrics["push_dropped"] = ent.co_dropped
     if machine_axis is not None:
         names = list(metrics)
         vals = torch.stack([torch.as_tensor(metrics[n], dtype=torch.float32,
                                             device=metrics["loss"].device)
                             for n in names])
         metrics = dict(zip(names, pmean(vals, machine_axis).unbind(0)))
-    return stores, metrics
+    return metrics
+
+
+def prefetch_workspaces(stores: Stores, batch: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """Issue the entity and relation workspace pulls for the NEXT batch.
+
+    The depth-1 staleness contract (``--pipeline-depth 1``): the pull reads
+    the tables as they are now, before this step's gradients apply, so the
+    rows the next step computes against are at most one update stale, and
+    the gradients still apply to the latest table. The pulled rows are
+    copies: the in-place apply that follows leaves them as they were.
+    """
+    def pull(store, ids):
+        fetch = getattr(store, "gather_prefetch", None)
+        return fetch(ids) if fetch is not None else store.gather(ids)
+
+    return {"entity": pull(stores["entity"], batch["ent_ids"]),
+            "rel": pull(stores["rel"], batch["rel_ids"])}
+
+
+def store_pipelined_step(
+    cfg: KGEConfig,
+    stores: Stores,
+    batch: Dict[str, torch.Tensor],
+    prefetched: Dict[str, torch.Tensor],
+    next_batch: Dict[str, torch.Tensor],
+    *,
+    ctx: Optional[S.ShardCtx] = None,
+    n_servers: int = 1,
+    machine_axis=None,
+) -> Tuple[Stores, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Depth-1 pipelined ``store_train_step``: grads from the PREVIOUS
+    step's prefetched workspaces, then the pull for ``next_batch``, then the
+    push/apply of this batch, in that order on every rank.
+
+    Returns ``(stores, next_prefetched, metrics)``. No flush phase: the
+    pipelined path runs with T5 defer off (``core.distributed.make_program``
+    refuses both). ``next_batch`` needs only its ``ent_ids``/``rel_ids``.
+    """
+    with telemetry.span("step/grad"):
+        grads, metrics = store_grads(cfg, stores, batch, ctx=ctx,
+                                     n_servers=n_servers, prefetched=prefetched)
+    with telemetry.span("step/prefetch"):
+        new_pf = prefetch_workspaces(stores, next_batch)
+    with telemetry.span("step/apply"):
+        store_apply_grads(stores, batch, grads)
+    return stores, new_pf, _finish_metrics(stores["entity"], metrics, machine_axis)

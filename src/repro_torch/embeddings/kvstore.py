@@ -129,7 +129,10 @@ def push_remote_grads(grads: torch.Tensor, req: torch.Tensor, spec: KVStoreSpec,
 
 
 def pull(block: torch.Tensor, local_ids: torch.Tensor, remote_req: torch.Tensor,
-         spec: KVStoreSpec) -> torch.Tensor:
-    """Full pull: workspace = [local rows; remote rows], (L + n_parts*Rp, d_shard)."""
+         spec: KVStoreSpec, metric_prefix: str = "kvstore/pull") -> torch.Tensor:
+    """Full pull: workspace = [local rows; remote rows], (L + n_parts*Rp,
+    d_shard). The pipelined step's lookahead pull passes
+    ``metric_prefix="kvstore/prefetch"``, so its remote traffic is counted
+    apart from the eager pulls'."""
     return torch.cat([pull_local(block, local_ids),
-                      pull_remote(block, remote_req, spec)], 0)
+                      pull_remote(block, remote_req, spec, metric_prefix)], 0)

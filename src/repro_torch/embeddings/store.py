@@ -13,8 +13,11 @@ embeddings/store.py). Three backends:
   "shared" split relations of T4): the dense gradient is summed over the
   machine group, then every replica takes the same dense Adagrad step.
 
-The reference's pipelined-I/O half of ``ShardedStore`` (``gather_prefetch``,
-``push_flush``, the coalesce buffers) is ROADMAP Queue A8.
+``ShardedStore`` also carries the pipelined I/O of ``--pipeline-depth 1``
+and ``--push-every K``: ``gather_prefetch`` (the lookahead pull, counted as
+``kvstore/prefetch_*``) and, with ``coalesce``, per-peer merge buffers that
+hold the remote grads of K steps until ``push_flush`` sends them in one
+deduplicated all_to_all.
 
 Update semantics (paper §3.4 + T5):
 
@@ -32,7 +35,7 @@ changes rows that autograd saved for the step that gathered them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Protocol, Union, runtime_checkable
+from typing import Dict, NamedTuple, Optional, Protocol, Union, runtime_checkable
 
 import torch
 
@@ -84,6 +87,28 @@ def _park_pending(pend_ids, pend_grads, ids, grads):
         return ids, grads.to(pend_grads.dtype), 0
     out_ids, out_grads, n_dropped = dedup_compact_rows(ids, grads, cap)
     return out_ids, out_grads.to(pend_grads.dtype), n_dropped
+
+
+def _coalesce_remote(co_ids, co_grads, req, g_remote):
+    """Merge one step's remote grads into the per-peer coalesce buffers, in
+    place.
+
+    For each peer ``p`` the buffered ``(co_ids[p], co_grads[p])`` and this
+    step's ``(req[p], g_remote[p])`` are dedup-aggregated and compacted back
+    into the fixed per-peer capacity. The merge takes the reference's
+    sort-based route on either device (the reference forces its jnp dedup
+    here), so an overflow drops the same rows, the largest ids, as the
+    reference's. Returns the uniques dropped, summed over peers.
+    """
+    dropped = 0
+    for p in range(co_ids.shape[0]):
+        ids = torch.cat([co_ids[p], req[p].to(torch.int32)])
+        g = torch.cat([co_grads[p], g_remote[p].to(co_grads.dtype)], 0)
+        ci, cg, nd = dedup_compact_rows(ids, g, co_ids.shape[1], by_sort=True)
+        co_ids[p].copy_(ci)
+        co_grads[p].copy_(cg)
+        dropped = dropped + nd
+    return dropped
 
 
 @dataclasses.dataclass
@@ -162,7 +187,8 @@ class ShardedStore:
     ``spec.machine_axis`` (the machine group); with ``machine_axis=None``
     (the n_parts == 1 degenerate KVStore) remote requests are served from
     the local block and the store needs no world. ``table`` and ``gsq`` are
-    updated in place.
+    updated in place, and so are the coalesce buffers ``co_ids`` and
+    ``co_grads`` (views of the caller's state, as the tables are).
     """
 
     table: torch.Tensor  # (rows_local, d or d_shard)
@@ -174,28 +200,64 @@ class ShardedStore:
     defer: bool = False
     # uniques dropped by the capacity-bounded defer (see DenseStore)
     pend_dropped: Union[int, torch.Tensor] = 0
+    # the coalesced push (--push-every K): remote grads accumulate per peer
+    # in (n_parts, Ck[, d_shard]) merge buffers across steps and leave in
+    # one deduplicated all_to_all at push_flush(); None when off
+    co_ids: Optional[torch.Tensor] = None
+    co_grads: Optional[torch.Tensor] = None
+    # uniques dropped by the merge buffers over this store's lifetime
+    # (adapters rebuild stores each step: there, the step's drop count)
+    co_dropped: Union[int, torch.Tensor] = 0
+    coalesce: bool = False
+
+    def __post_init__(self):
+        if self.coalesce and self.defer:
+            raise ValueError(
+                "coalesce and defer are mutually exclusive: both hold this "
+                "step's grads back, and mixing their buffers would apply "
+                "remote rows on a different cadence than local ones")
 
     @classmethod
     def create(cls, table: torch.Tensor, spec: KVStoreSpec, lr: float,
                defer: bool = False, pend_slots: int = 0,
                coalesce_slots: int = 0) -> "ShardedStore":
-        if coalesce_slots:
-            raise NotImplementedError(
-                "the coalesced push (--push-every) is not yet ported to "
-                "repro_torch: ROADMAP Queue A8 (pipelined I/O)")
         pid, pg = _empty_pending(table, pend_slots if defer else 0)
+        co = {}
+        if coalesce_slots:
+            co = dict(
+                co_ids=torch.full((spec.n_parts, coalesce_slots), -1,
+                                  dtype=torch.int32, device=table.device),
+                co_grads=torch.zeros((spec.n_parts, coalesce_slots, table.shape[-1]),
+                                     dtype=table.dtype, device=table.device),
+                coalesce=True)
         return cls(table=table, gsq=torch.zeros_like(table), pend_ids=pid,
-                   pend_grads=pg, spec=spec, lr=lr, defer=defer)
+                   pend_grads=pg, spec=spec, lr=lr, defer=defer, **co)
 
     def gather(self, ids: ShardedIds) -> torch.Tensor:
         """Workspace = [local rows (L,); remote rows (n_parts * Rp,)]."""
         return pull(self.table, ids.local, ids.remote, self.spec)
 
+    def gather_prefetch(self, ids: ShardedIds) -> torch.Tensor:
+        """``gather`` for the pipelined one-step lookahead (the same rows and
+        collectives; a copy of the tables as they are now), its remote pull
+        counted as ``kvstore/prefetch_*``."""
+        return pull(self.table, ids.local, ids.remote, self.spec,
+                    metric_prefix="kvstore/prefetch")
+
     def apply_sparse_grads(self, ids: ShardedIds, grads) -> "ShardedStore":
         """``grads`` covers the whole workspace returned by ``gather``: the
         local rows' grads stay, the remote rows' go to their owners, and
-        every row this machine owns is updated (or parked, T5)."""
+        every row this machine owns is updated (or parked, T5). When
+        coalescing, the local rows are updated now and the remote rows'
+        grads merge into the per-peer buffers until ``push_flush``."""
         L = ids.local.shape[0]
+        if self.coalesce:
+            n_parts = ids.remote.shape[0]
+            nd = _coalesce_remote(self.co_ids, self.co_grads, ids.remote,
+                                  grads[L:].reshape(n_parts, -1, grads.shape[-1]))
+            sparse_adagrad_apply(self.table, self.gsq, ids.local, grads[:L], self.lr)
+            self.co_dropped = self.co_dropped + nd
+            return self
         owner_ids, owner_grads = push_remote_grads(grads[L:], ids.remote, self.spec)
         all_ids = torch.cat([ids.local.to(torch.int32), owner_ids.to(torch.int32)])
         all_grads = torch.cat([grads[:L], owner_grads], 0)
@@ -205,6 +267,26 @@ class ShardedStore:
             self.pend_dropped = self.pend_dropped + nd
             return self
         sparse_adagrad_apply(self.table, self.gsq, all_ids, all_grads, self.lr)
+        return self
+
+    def push_flush(self) -> "ShardedStore":
+        """Flush the coalesce buffers: ONE deduplicated all_to_all of ``(n_parts
+        * Ck)`` row slots returns the accumulated remote grads to their
+        owners, the owners apply them with sparse Adagrad, and the buffers
+        reset in place. A no-op when coalescing is off. The merge already
+        summed duplicate rows, so one flush of K steps' grads applies their
+        per-row sums in a single Adagrad step."""
+        if not self.coalesce:
+            return self
+        n_parts, ck = self.co_ids.shape
+        owner_ids, owner_grads = push_remote_grads(
+            self.co_grads.reshape(n_parts * ck, -1), self.co_ids, self.spec,
+            metric_prefix="kvstore/coalesced_push")
+        sparse_adagrad_apply(self.table, self.gsq, owner_ids, owner_grads, self.lr)
+        # after the apply: with machine_axis=None the owner's ids and grads
+        # are views of these buffers
+        self.co_ids.fill_(-1)
+        self.co_grads.zero_()
         return self
 
     def flush(self) -> "ShardedStore":
@@ -218,8 +300,12 @@ class ShardedStore:
         return self
 
     def snapshot(self) -> Snapshot:
-        return {"table": self.table, "gsq": self.gsq,
+        snap = {"table": self.table, "gsq": self.gsq,
                 "pend_ids": self.pend_ids, "pend_grads": self.pend_grads}
+        if self.coalesce:
+            snap["co_ids"] = self.co_ids
+            snap["co_grads"] = self.co_grads
+        return snap
 
     def restore(self, snap: Snapshot) -> "ShardedStore":
         for name, value in snap.items():

@@ -349,7 +349,21 @@ def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
     sample callable per sampler worker (required for n_samplers > 1), and
     ``split_step=(grad_fn, apply_fn)`` enables stale-gradient Hogwild steps
     (without it the whole ``step_fn`` is swapped under the slot's lock).
+
+    A ``step_fn`` with a truthy ``lookahead`` attribute (the pipelined
+    distributed runner, ``core.distributed.PipelinedDistStep``) is called as
+    ``step_fn(state, batch, next_batch)``: the loop *peeks* batch t+1 from
+    the prefetcher without consuming it, so the step can issue the pull for
+    t+1 before the push of t. A ``step_fn.finalize`` method, when present,
+    is applied to the final state before the ``on_end`` hooks (it flushes a
+    partial coalesced-push window).
     """
+    lookahead = bool(getattr(step_fn, "lookahead", False))
+    if lookahead and (n_trainers > 1 or n_samplers > 1):
+        raise ValueError(
+            "pipelined lookahead step and the Hogwild multi-trainer runtime "
+            "are mutually exclusive (peek() is single-consumer; the pipeline "
+            "is its own overlap mechanism)")
     if n_trainers > 1 or n_samplers > 1:
         from repro_torch.launch.runtime import hogwild_train_loop
 
@@ -357,18 +371,35 @@ def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
             step_fn, state, make_batch, n_steps, start=start, hooks=hooks,
             n_trainers=n_trainers, n_samplers=n_samplers,
             sampler_factory=sampler_factory, split_step=split_step)
+    if start >= n_steps:
+        return _finish(start, state, hooks)
+    if lookahead and not prefetch:
+        raise ValueError(
+            "pipelined lookahead step requires prefetch=True: the one-batch "
+            "lookahead is WorkerPool.peek() on the prefetch queue")
+    src = Prefetcher(make_batch) if prefetch else iter(make_batch, object())
     i = start
-    if start < n_steps:
-        src = Prefetcher(make_batch) if prefetch else iter(make_batch, object())
-        try:
+    try:
+        if lookahead:
+            for i in range(start + 1, n_steps + 1):
+                batch, stats = src.get()
+                nxt, _ = src.peek()
+                with telemetry.span("engine/step"):
+                    state, metrics = step_fn(state, batch, nxt)
+                for h in hooks:
+                    h.on_step(i, state, metrics, stats)
+        else:
             for i, (batch, stats) in zip(range(start + 1, n_steps + 1), src):
                 with telemetry.span("engine/step"):
                     state, metrics = step_fn(state, batch)
                 for h in hooks:
                     h.on_step(i, state, metrics, stats)
-        finally:
-            if prefetch:
-                src.close()
+    finally:
+        if prefetch:
+            src.close()
+    finalize = getattr(step_fn, "finalize", None)
+    if finalize is not None:
+        state = finalize(state)
     return _finish(i, state, hooks)
 
 

@@ -10,6 +10,9 @@
         --metrics-out build/m.jsonl --trace-out build/t.json
     PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
         --distributed --mesh 2x2 --device cpu --steps 20 --scale 0.05
+    PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
+        --distributed --mesh 2x2 --device cpu --steps 20 --scale 0.05 \\
+        --pipeline-depth 1 --push-every 4
 
 runs on the GPU through the port's CUDA kernels; ``--device cpu`` runs the
 same code with the kernels' plain PyTorch versions. Without ``--device cpu``
@@ -46,17 +49,23 @@ Switchable as in the JAX package's launch/train.py:
                                    NCCL with one rank per card on cuda)
     --partitioner metis|random    (T3; distributed only)
     --remote-capacity R           (KVStore remote rows per machine a step)
+    --pipeline-depth 1            (distributed only: the pull for batch t+1
+                                   is issued before the push of batch t;
+                                   one-step-stale reads)
+    --push-every K                (distributed only: remote grads merge in
+                                   per-peer buffers and leave in one
+                                   deduplicated all_to_all every K steps)
     --use-kernel                  (accepted for the reference's command
                                    lines: the port's kernels are chosen by
                                    the device, so this trains on cuda and is
                                    refused on --device cpu)
 
-Multi-trainer turns T5 overlap off (Hogwild already overlaps updates with
-compute; the deferred buffers are single-writer), as in the JAX package.
+Multi-trainer and pipelined I/O turn T5 overlap off (each already overlaps
+updates with compute; the deferred buffers are single-writer), as in the
+JAX package, and the two cannot be combined.
 
-Not ported yet, and refused with the ROADMAP item that ports them:
-pipelined I/O (--pipeline-depth, --push-every), and --trainers/--samplers
-above 1 with --distributed.
+Not ported yet, and refused with the ROADMAP item that ports it:
+--trainers/--samplers above 1 with --distributed.
 """
 
 from __future__ import annotations
@@ -69,13 +78,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-# flag -> ROADMAP item that ports it
-NOT_PORTED = {
-    "pipeline_depth": "Queue A8 (pipelined I/O)",
-    "push_every": "Queue A8 (pipelined I/O)",
-}
-# refused with --distributed only: the whole-step StoreSlot swap of the
-# distributed step must run every rank's collectives in one order
+# refused with --distributed only (flag -> ROADMAP item that ports it):
+# every rank must step the same batch, with its collectives in one order
 NOT_PORTED_DISTRIBUTED = {
     "trainers": "Queue A7.4 (--trainers/--samplers with --distributed)",
     "samplers": "Queue A7.4 (--trainers/--samplers with --distributed)",
@@ -126,10 +130,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--use-kernel", action="store_true",
                     help="the reference's kernel switch: the port's kernels "
                          "run on every CUDA tensor, so this needs --device cuda")
-    # accepted so that the reference's command lines fail loudly, not oddly
-    ap.add_argument("--pipeline-depth", type=int, default=0)
-    ap.add_argument("--push-every", type=int, default=1)
+    ap.add_argument("--pipeline-depth", type=int, default=0, choices=[0, 1],
+                    help="distributed only: 1 = double-buffered KVStore pull "
+                         "prefetch (issue the pull for batch t+1 before the "
+                         "push of batch t; one-step-stale reads)")
+    ap.add_argument("--push-every", type=int, default=1,
+                    help="distributed only: coalesce remote grad pushes in "
+                         "per-peer merge buffers and flush them as one "
+                         "deduplicated all_to_all every K steps")
     return ap
+
+
+def _pipelined(args) -> bool:
+    return args.pipeline_depth > 0 or args.push_every > 1
 
 
 def make_config(args):
@@ -176,13 +189,16 @@ def train(args, hooks: Sequence = ()):
     is installed for the run and the previous one restored after it."""
     from repro_torch.common import telemetry
 
+    if _pipelined(args) and (args.trainers > 1 or args.samplers > 1):
+        raise SystemExit("--pipeline-depth/--push-every are incompatible "
+                         "with --trainers/--samplers > 1 (the lookahead is "
+                         "single-consumer; see launch/engine.train_loop)")
     defaults = build_parser().parse_args([])
-    refused = dict(NOT_PORTED, **(NOT_PORTED_DISTRIBUTED if args.distributed else {}))
-    for flag, item in refused.items():
+    for flag, item in (NOT_PORTED_DISTRIBUTED if args.distributed else {}).items():
         if getattr(args, flag) != getattr(defaults, flag):
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {'with --distributed ' * args.distributed}"
-                f"is not yet ported to repro_torch: ROADMAP {item}")
+                f"--{flag.replace('_', '-')} with --distributed is not yet "
+                f"ported to repro_torch: ROADMAP {item}")
     if args.use_kernel and args.device != "cuda":
         raise ValueError(
             "--use-kernel: the port's kernels run on CUDA tensors only, and "
@@ -304,7 +320,7 @@ def _dist_rank(grid, args, hooks=()):
         latest_step, restore_checkpoint, save_checkpoint,
     )
     from repro_torch.core.distributed import (
-        batch_to_rank, build_dist_train_step, dist_state_from_arrays,
+        batch_to_rank, build_pipelined_dist_step, dist_state_from_arrays,
         gather_dist_state, init_dist_state, make_program,
     )
     from repro_torch.core.graph_part import cut_fraction, partition
@@ -326,9 +342,16 @@ def _dist_rank(grid, args, hooks=()):
                      seed=args.seed)
     say(f"partitioner={args.partitioner} cut={cut_fraction(kg.train, book.part_of):.3f}")
     rp = relation_partition(kg.rel_counts(), n_parts, seed=args.seed)
-    prog = make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared)
+    if _pipelined(args) and cfg.overlap_update:
+        say("pipelined KVStore I/O: T5 overlap off (the pipeline is its "
+            "own single-writer one-step-stale overlap mechanism)")
+        cfg = dataclasses.replace(cfg, overlap_update=False)
+    prog = make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared,
+                        pipeline_depth=args.pipeline_depth,
+                        push_every=args.push_every)
     sampler = DistSampler(kg.train, book, rp, cfg, np.random.default_rng(args.seed))
-    step = build_dist_train_step(prog, grid)
+    # the eager step itself without --pipeline-depth/--push-every
+    step = build_pipelined_dist_step(prog, grid)
 
     start = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
@@ -368,7 +391,12 @@ def _dist_rank(grid, args, hooks=()):
 
 
 def main(argv=None, hooks: Sequence = ()):
-    return train(build_parser().parse_args(argv), hooks)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if not args.distributed and _pipelined(args):
+        ap.error("--pipeline-depth/--push-every require --distributed "
+                 "(they pipeline the KVStore collectives)")
+    return train(args, hooks)
 
 
 if __name__ == "__main__":

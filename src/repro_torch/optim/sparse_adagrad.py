@@ -13,7 +13,10 @@ versions. There is no flag and no environment override.
 
 ``segment_aggregate_rows`` (sort-based dedup), ``sparse_adagrad_update_rows``
 (scatter-add update) and ``dense_adagrad_update`` port the reference's plain
-formulations, which the training path does not use.
+formulations. Of these the training path uses only the sort-based dedup: the
+coalesced push's per-peer merge (``dedup_compact_rows(..., by_sort=True)``,
+embeddings/store.py), where the reference itself forces its jnp route, so
+both packages keep the same rows when a merge buffer overflows.
 
 Padding convention: ids < 0 are no-ops, enabling fixed-size buffers.
 """
@@ -72,14 +75,21 @@ def dedup_compact_rows(
     ids: torch.Tensor,
     grads: torch.Tensor,
     capacity: int,
+    *,
+    by_sort: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Dedup + compact into a ``capacity``-slot buffer (T5 pend buffers).
+    """Dedup + compact into a ``capacity``-slot buffer (T5 pend buffers, the
+    coalesced push's merge buffers).
 
     Returns (ids (capacity,) int32, grads (capacity, d), n_dropped). Uniques
-    keep their first-occurrence order (the dedup kernel's layout); those
     beyond ``capacity`` are DROPPED and counted exactly in ``n_dropped``.
+    By default the uniques keep their first-occurrence order (the dedup
+    kernel's layout, ``dedup_aggregate``). ``by_sort=True`` takes the
+    reference's sort-based route on either device (``segment_aggregate_rows``,
+    ascending ids, so an overflow drops the largest ids): the coalesce merge
+    asks for it, as the reference's does with ``use_kernel=False``.
     """
-    uid, agg = dedup_aggregate(ids, grads)
+    uid, agg = (segment_aggregate_rows if by_sort else dedup_aggregate)(ids, grads)
     first = uid >= 0
     rank = torch.cumsum(first.to(torch.int64), 0) - 1
     keep = first & (rank < capacity)

@@ -10,7 +10,14 @@ an all_gather.
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.distributed import run_batches
+from repro_torch.core.distributed import (
+    batch_to_rank,
+    build_dist_train_step,
+    build_pipelined_dist_step,
+    dist_state_from_arrays,
+    gather_dist_state,
+    run_batches,
+)
 from repro_torch.embeddings.kvstore import KVStoreSpec, pull_remote, push_remote_grads
 from repro_torch.embeddings.store import ReplicatedStore
 
@@ -60,3 +67,37 @@ def store_cases(grid, pull_args, push_args, replicated_args):
     update."""
     return (kvstore_pull(grid, *pull_args), kvstore_push(grid, *push_args),
             replicated_apply(grid, *replicated_args))
+
+
+def _steps_by_hand(grid, step, prog, arrays, batches, lookahead):
+    """Step ``batches`` by hand; the global state after each step (rank 0)."""
+    state = dist_state_from_arrays(prog, grid, arrays)
+    after = []
+    for i in range(len(batches) - lookahead):
+        b = batch_to_rank(batches[i], grid)
+        if lookahead:
+            state, _ = step(state, b, batch_to_rank(batches[i + 1], grid))
+        else:
+            state, _ = step(state, b)
+        after.append(gather_dist_state(prog, grid, state))
+    return after
+
+
+def pipeline_cases(grid, cases, trace=None, eager=None):
+    """The pipelined step's world: ``run_batches`` with rank 0's counters
+    for each (prog, arrays, batches) case; with ``trace``, a depth-1 case
+    stepped by hand with the global state after each step (the staleness
+    contract); with ``eager``, a depth-0, push_every-1 case through both
+    builders (the eager step)."""
+    runs = [run_batches(grid, *case, counters=True) for case in cases]
+    traced = both = None
+    if trace is not None:
+        prog, arrays, batches = trace
+        traced = _steps_by_hand(grid, build_pipelined_dist_step(prog, grid), prog,
+                                arrays, batches, lookahead=True)
+    if eager is not None:
+        prog, arrays, batches = eager
+        both = [_steps_by_hand(grid, build(prog, grid), prog, arrays, batches,
+                               lookahead=False)
+                for build in (build_dist_train_step, build_pipelined_dist_step)]
+    return runs, traced, both

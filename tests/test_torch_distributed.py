@@ -248,7 +248,8 @@ def test_cli_checkpoint_has_jax_layout_and_resumes(tmp_path, capsys):
 
 
 def test_make_program_validates_like_jax(small_kg):
-    """The reference's validation, then pipelined I/O refused naming A8."""
+    """The reference's validation, then pipelined I/O accepted with T5 off:
+    the same programs as JAX's (fields and state shapes)."""
     kw = _kw(small_kg, "transe_l2", 2, True)
     args = (100, 8, 1)
     for over, prog_kw in ((dict(), dict(pipeline_depth=2)),
@@ -259,11 +260,15 @@ def test_make_program_validates_like_jax(small_kg):
         for make, cfg_cls in ((JD.make_program, JaxCfg), (TD.make_program, TorchCfg)):
             with pytest.raises(ValueError):
                 make(cfg_cls(**dict(kw, **over)), *args, **prog_kw)
-    no_t5 = TorchCfg(**dict(kw, overlap_update=False))
-    for prog_kw in (dict(pipeline_depth=1), dict(push_every=2)):
-        JD.make_program(JaxCfg(**dict(kw, overlap_update=False)), *args, **prog_kw)
-        with pytest.raises(NotImplementedError, match="A8"):
-            TD.make_program(no_t5, *args, **prog_kw)
+    no_t5 = dict(kw, overlap_update=False)
+    for prog_kw in (dict(pipeline_depth=1), dict(push_every=2),
+                    dict(pipeline_depth=1, push_every=4)):
+        jprog = JD.make_program(JaxCfg(**no_t5), *args, **prog_kw)
+        tprog = TD.make_program(TorchCfg(**no_t5), *args, **prog_kw)
+        assert (tprog.pipeline_depth, tprog.push_every, tprog.coalesce_slots) == (
+            jprog.pipeline_depth, jprog.push_every, jprog.coalesce_slots)
+        assert tprog.state_shapes() == {k: (sd.shape, np.dtype(sd.dtype))
+                                        for k, sd in jprog.state_shapes().items()}
 
 
 def test_cuda_world_needs_a_card_per_rank(monkeypatch):

@@ -56,12 +56,28 @@ def _to_sharded_batch(db, pad):
 
 
 def test_stores_satisfy_protocol():
+    """Every store is an EmbeddingStore; ``coalesce_slots`` makes JAX's
+    merge buffers (all pads), which the snapshot carries, and a coalescing
+    store refuses to defer, as JAX's does."""
     table = torch.zeros((6, 4))
     for store in (DenseStore.create(table.clone(), 0.1), _sharded(table.clone(), 0.1),
                   ReplicatedStore.create(table.clone(), 0.1)):
         assert isinstance(store, EmbeddingStore)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ShardedStore.create(table, KVStoreSpec(None, 1, 1), 0.1, coalesce_slots=4)
+    co = ShardedStore.create(table, KVStoreSpec(None, 2, 2), 0.1, coalesce_slots=4)
+    jco = JS.ShardedStore.create(jnp.zeros((6, 4)), JaxSpec(None, 2, 2), 0.1,
+                                 coalesce_slots=4)
+    assert isinstance(co, EmbeddingStore) and co.coalesce and jco.coalesce
+    for name in ("co_ids", "co_grads"):
+        got, want = getattr(co, name), np.asarray(getattr(jco, name))
+        assert tuple(got.shape) == want.shape and str(got.dtype)[6:] == str(want.dtype)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    assert set(co.snapshot()) == set(jco.snapshot())
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ShardedStore.create(table, KVStoreSpec(None, 1, 1), 0.1, defer=True,
+                            coalesce_slots=4)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        JS.ShardedStore.create(jnp.zeros((6, 4)), JaxSpec(None, 1, 1), 0.1,
+                               defer=True, coalesce_slots=4)
 
 
 @pytest.mark.parametrize("defer", [False, True])

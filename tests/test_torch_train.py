@@ -186,12 +186,20 @@ def test_cli_trains_rescal_and_leaves_its_relation_rows():
 
 
 def test_cli_refuses_unported_modes():
+    """--trainers/--samplers with --distributed stay refused naming A7.4;
+    the pipelined flags are refused where JAX refuses them: without
+    --distributed (an argparse error, exit 2) and with more than one
+    trainer or sampler (JAX's SystemExit)."""
     from repro_torch.launch import train
 
-    for flags, item in ((["--push-every", "2"], "A8"),
-                        (["--pipeline-depth", "1"], "A8"),
-                        (["--distributed", "--push-every", "2"], "A8"),
-                        (["--distributed", "--trainers", "2"], "A7.4"),
+    for flags in (["--push-every", "2"], ["--pipeline-depth", "1"]):
+        with pytest.raises(SystemExit) as err:
+            train.main(["--device", "cpu", *flags])
+        assert err.value.code == 2
+    with pytest.raises(SystemExit, match="incompatible with --trainers/--samplers"):
+        train.main(["--device", "cpu", "--distributed", "--push-every", "2",
+                    "--samplers", "2"])
+    for flags, item in ((["--distributed", "--trainers", "2"], "A7.4"),
                         (["--distributed", "--samplers", "2"], "A7.4")):
         with pytest.raises(NotImplementedError, match=item):
             train.main(["--device", "cpu", *flags])
