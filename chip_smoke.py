@@ -107,7 +107,31 @@ Phases, each fatal on failure (exit code 1, no result line):
      list, under phase 4's rule (TransE_l1's card reading printed beside
      two CPU runs that differ only in the order of the batch's triplets,
      which must already part beyond the rule).
+ 14. pipelined KVStore I/O: phase 13's world with ``--pipeline-depth 1
+     --push-every 4`` (T5 off): exactly 400 pairwise_l2sq and 450 each of
+     dedup_aggregate and fused_update (50 flushes, each the
+     ``kvstore/coalesced_push_flushes`` counter's), the checkpoint of step
+     200 with its prefetch and merge buffers (merge ids all pads) restored
+     bit for bit, a resume to 210, TransE_l1 at K 2 (exactly 100 each of
+     pairwise_l1 and l1_bwd_pair), three pipelined steps against the CPU
+     under phase 4's rule, the sort-based merge of one step timed by
+     kernel; step time, device time and idle share beside phase 13's.
+ 15. distributed Hogwild: phase 13's world with ``--trainers 2 --samplers
+     2`` (the runtime's ordered mode: step t takes sampler t mod 2's batch;
+     T5 on), 200 TransE_l2 steps with ``--ckpt-dir ... --save-every 100
+     --metrics-out ... --trace-out ...``: exactly 400 pairwise_l2sq and
+     phase 13's counts of dedup_aggregate and fused_update, both files valid
+     (step counters 200, trainer and sampler tracks, the turnstile's
+     ``runtime/wait_turn`` span), the checkpoint of step 200 restored bit for
+     bit and a resume from step 201; the final tables and every loss
+     against a ``--trainers 1 --samplers 2`` run of the same world (the same
+     batch order; its times printed too) under phase 4's rule; three
+     dim-400 steps of TransE_l2 and DistMult through the ordered runtime on
+     the card and in a gloo world of one on the CPU, under phase 4's rule;
+     step time, device time and idle share beside phase 13's.
 
+Phase 9 also passes ``--metrics-out`` and ``--trace-out``: a snapshot every
+16 steps and one ``engine/step`` span a step, under the port's validators.
 Launch counts are set to 0 just before each path and read just after it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -123,17 +147,13 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
-# H100 SXM, dense TF32 tensor cores (494.7 TFLOP/s), a product taken as three
-# TF32 products (3xTF32: the fp32-accurate route of the dot and l2sq
-# products, the f32 flash-attention kernel and the SSD scan)
-TF32X3_OPS_PER_S = 494.7e12 / 3
-BF16_OPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
+# the card's peak rates, from the port's H100 SXM spec (load_rates)
+HBM_BYTES_PER_S = FP32_OPS_PER_S = TF32X3_OPS_PER_S = BF16_OPS_PER_S = None
 TOL_REL = 2e-5  # kernel vs plain: fp32 sums taken in another order
 AGREEMENT_STEPS = 3  # phase 4
 MAIN_PATH_STEPS = 200
@@ -160,6 +180,9 @@ DIST_L1_STEPS = 50
 DIST_AGREEMENT_STEPS = 3
 PIPE_DIR = ROOT / "build" / "chip_smoke_pipe"
 PIPE_PUSH_EVERY = 4
+DIST_HOG_DIR = ROOT / "build" / "chip_smoke_dist_hogwild"
+DIST_HOG_TIMED = (100, 150)  # step time over steps 101-150, as phase 13's
+DIST_HOG_TRACED = (160, 180)  # the profiler window, on trainer 0's steps
 # flash attention, (B, H, Hkv, T, S, dh, window, q_offset, dtype); the first
 # is what the Qwen prefill path launches
 FLASH_SHAPES = {
@@ -175,6 +198,7 @@ QWEN = "qwen1.5-0.5b"
 PREFILL_SHAPE = (4, 2048)
 SERVE_ARGS = ["--arch", QWEN, "--full", "--batch", "4", "--prompt-len", "32",
               "--gen", "16"]
+SERVE_DIR = ROOT / "build" / "chip_smoke_serve"  # phase 9's telemetry files
 LM_TOL = 2e-3  # logits, f32: JAX's bound (tests/test_flash_serving.py)
 MAMBA = "mamba2-2.7b"
 MAMBA_SERVE_ARGS = ["--arch", MAMBA, "--full", "--batch", "4", "--prompt-len", "32",
@@ -239,10 +263,16 @@ def event_ms(torch, fn, reps=50, warmup=5):
 
 
 def _self_device_us(evt) -> float:
-    """Device time of a kernel, memcpy or memset event; 0 for a host event."""
+    """Device time of a kernel, memcpy or memset event; 0 for a host event
+    and for a user annotation's span on the device timeline (a
+    ``record_function`` range such as ``nccl:all_gather``, recorded when
+    the CPU activity is traced too), which covers kernels counted on their
+    own, as torch.profiler's own table leaves them out of its device
+    total."""
     import torch
 
-    if evt.device_type != torch.autograd.DeviceType.CUDA:
+    if (evt.device_type != torch.autograd.DeviceType.CUDA
+            or getattr(evt, "is_user_annotation", False)):
         return 0.0
     return float(evt.self_device_time_total)
 
@@ -297,11 +327,29 @@ def _fmt(r) -> str:
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}{fp32})")
 
 
-def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S,
-          more=()):
+def load_rates() -> dict:
+    """Set the peak rates the bounds use from ``src/repro_torch/common/hw.py``
+    (NVIDIA's H100 SXM data sheet, dense): HBM bytes/s, fp32 outside the
+    tensor cores, TF32 taken three times for one fp32-accurate product
+    (3xTF32: the dot and l2sq products, the f32 flash-attention kernel and
+    the SSD scan), bf16 tensor cores. Returns them by name."""
+    from repro_torch.common.hw import H100_SXM as hw
+
+    rates = dict(HBM_BYTES_PER_S=hw.hbm_bandwidth, FP32_OPS_PER_S=hw.peak_fp32_flops,
+                 TF32X3_OPS_PER_S=hw.peak_tf32_flops / 3,
+                 BF16_OPS_PER_S=hw.peak_bf16_flops)
+    globals().update(rates)
+    return rates
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = None, more=()):
     """(least ms, what bounds it): the bytes over the memory rate against the
-    operations over their units' rate; ``more`` holds (ops, rate) pairs of
-    work on other units, which may run at the same time."""
+    operations over their units' rate (fp32's by default); ``more`` holds
+    (ops, rate) pairs of work on other units, which may run at the same
+    time."""
+    if HBM_BYTES_PER_S is None:
+        load_rates()
+    ops_per_s = FP32_OPS_PER_S if ops_per_s is None else ops_per_s
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = max([n_ops / ops_per_s * 1e3] + [o / r * 1e3 for o, r in more])
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1277,7 +1325,7 @@ def run_qwen_prefill(torch, np, dev):
     return launches, summary, (model, cast, flash, model32, params, flash32)
 
 
-def run_serve(torch, np, dev, serve_args, counter, reuse, scaled_f32):
+def run_serve(torch, np, dev, serve_args, counter, reuse, scaled_f32, files=None):
     """Phases 9 and 11: the serve CLI in process (it draws its weights from
     seed 0, as the prefill phase before it does); its decode launches no
     kernel. Then, in f32 from the same weights, its teacher-forced decode
@@ -1288,24 +1336,50 @@ def run_serve(torch, np, dev, serve_args, counter, reuse, scaled_f32):
     config's dtype, are held like that dtype's prefill to their distance
     from the f32 logits. Last, decode tokens/s with the card synchronised.
     ``reuse`` is (model, cast weights, prefill, f32 model, f32 weights, f32
-    prefill) from the prefill phase."""
+    prefill) from the prefill phase. With ``files`` (a directory) the CLI
+    also writes ``--metrics-out`` and ``--trace-out`` there, which must pass
+    the port's validators: a snapshot every 16 steps and a trace with the
+    loop's step spans."""
+    from repro_torch.common import telemetry
     from repro_torch.kernels import build
     from repro_torch.launch import serve
 
     model, cast, prefill, model32, params32, prefill32 = reuse
+    extra = []
+    if files is not None:
+        shutil.rmtree(files, ignore_errors=True)
+        files.mkdir(parents=True)
+        m_path, t_path = files / "m.jsonl", files / "t.json"
+        extra = ["--metrics-out", str(m_path), "--trace-out", str(t_path)]
     tee = _Tee(sys.stdout)
     build.reset_launches()
     sys.stdout = tee
     try:
-        gen, logits = serve.main(serve_args)
+        gen, logits = serve.main([*serve_args, *extra])
         torch.cuda.synchronize()
     finally:
         sys.stdout = tee.out
     launches = dict(build.LAUNCHES)
+    files_summary = None
+    if files is not None:
+        n_lines = telemetry.validate_metrics_jsonl(str(m_path), require=("engine/steps",))
+        n_events = telemetry.validate_trace(str(t_path))
+        last = json.loads(m_path.read_text().splitlines()[-1])
+        steps = [e for e in json.loads(t_path.read_text())["traceEvents"]
+                 if e.get("name") == "engine/step"]
+        print(f"  {m_path.name}: {n_lines} snapshots, last at step {last['step']} "
+              f"(engine/steps {last['counters'].get('engine/steps')}); {t_path.name}: "
+              f"{n_events} events, {len(steps)} engine/step spans")
+        files_summary = dict(snapshots=n_lines, trace_events=n_events)
+        shutil.rmtree(files, ignore_errors=True)
     rate = re.findall(r"^(\d+) steps in (\S+)s -> (\S+) tok/s$", "".join(tee.parts), re.M)
     args = serve.build_parser().parse_args(serve_args)
     B, T, G = args.batch, args.prompt_len, args.gen
     check(len(rate) == 1 and int(rate[0][0]) == T + G, "no throughput line")
+    if files is not None:
+        check(n_lines == -(-(T + G) // 16) and last["step"] == T + G
+              and last["counters"].get("engine/steps") == T + G
+              and len(steps) == T + G, "the serve telemetry files miss steps")
     check(sum(launches.values()) == 0, f"the decode path launched kernels: {launches}")
     check(gen.shape == (B, G) and len(logits) == T + G
           and all(bool(torch.isfinite(lg).all()) for lg in logits),
@@ -1360,6 +1434,8 @@ def run_serve(torch, np, dev, serve_args, counter, reuse, scaled_f32):
                    f32_decode_vs_prefill_err=err32, f32_decode_vs_prefill_ratio=ratio32,
                    decode_vs_prefill_err=err, argmax_equal=top1,
                    decode_from_f32_err=e_dec, prefill_from_f32_err=e_pre)
+    if files_summary is not None:
+        summary["telemetry_files"] = files_summary
     return launches, summary
 
 
@@ -1567,64 +1643,81 @@ def check_two_phase(torch, np, dev, kg):
           and st.step == 2, "the staleness contract does not hold on the card")
 
 
+class TrainerWindow:
+    """A hook for runs of several trainers: host-clock times of steps
+    ``timed`` (the card synchronised at each), and a torch.profiler window
+    (CUDA activity) opened and closed on the caller's thread (trainer 0) at
+    its first steps past ``traced[0]`` and ``traced[1]``: ``window`` is
+    (first step, last step, host clock at each)."""
+
+    def __init__(self, torch, timed, traced):
+        self.torch, self.timed, self.traced = torch, timed, traced
+        self.t = {}
+        self.prof = self.window = None
+
+    def on_step(self, i, state, metrics, stats):
+        torch = self.torch
+        if i in self.timed:
+            torch.cuda.synchronize()
+            self.t[i] = time.perf_counter()
+        if threading.current_thread() is not threading.main_thread():
+            return
+        a, b = self.traced
+        if self.prof is None and i > a:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+            self.window = [i, None, time.perf_counter(), None]
+        elif self.window is not None and self.window[1] is None and i > b:
+            torch.cuda.synchronize()
+            self.window[1], self.window[3] = i, time.perf_counter()
+            self.prof.stop()
+
+    def on_end(self, i, state):
+        return None
+
+    def step_ms(self):
+        a, b = self.timed
+        return (self.t[b] - self.t[a]) / (b - a) * 1e3
+
+    def device(self):
+        """(device ms a step in the window, busy share of the window, the
+        window's wall ms, its kernels)."""
+        check(self.window is not None and self.window[1] is not None,
+              "the profiler window did not close")
+        i0, i1, w0, w1 = self.window
+        kern = [e for e in self.prof.key_averages() if _self_device_us(e) > 0]
+        dev_ms = sum(_self_device_us(e) for e in kern) / 1e3
+        return dev_ms / (i1 - i0), dev_ms / ((w1 - w0) * 1e3), (w1 - w0) * 1e3, kern
+
+
 def hogwild_scaling(torch, np, n_trainers):
     """``n_trainers`` trainers and samplers, T5 off, HOGWILD_SCALING_STEPS
     steps: triplets/s over steps 51-200 (host clock between synchronises),
     then the card's busy share in a torch.profiler window (CUDA activity)
     opened and closed on trainer 0's thread, the caller's, at its first
     steps past 210 and 235. Returns (losses, summary)."""
-    import threading
-
-    from repro_torch.launch import engine
-
-    class Timed(engine.Hook):
-        def __init__(self):
-            self.t = {}
-            self.prof = self.window = None
-
-        def on_step(self, i, state, metrics, stats):
-            if i in HOGWILD_TIMED:
-                torch.cuda.synchronize()
-                self.t[i] = time.perf_counter()
-            if threading.current_thread() is not threading.main_thread():
-                return
-            a, b = HOGWILD_TRACED
-            if self.prof is None and i > a:
-                from torch.profiler import ProfilerActivity, profile
-
-                torch.cuda.synchronize()
-                self.prof = profile(activities=[ProfilerActivity.CUDA])
-                self.prof.start()
-                self.window = [i, None, time.perf_counter(), None]
-            elif self.window is not None and self.window[1] is None and i > b:
-                torch.cuda.synchronize()
-                self.window[1], self.window[3] = i, time.perf_counter()
-                self.prof.stop()
-
-    timed = Timed()
+    timed = TrainerWindow(torch, HOGWILD_TIMED, HOGWILD_TRACED)
     launches, cfg, state, loss, wall = hogwild_cli(
         torch, np, "transe_l2", n_trainers, HOGWILD_SCALING_STEPS,
         ["--no-overlap"], hooks=[timed])
     a, b = HOGWILD_TIMED
-    step_ms = (timed.t[b] - timed.t[a]) / (b - a) * 1e3
-    check(timed.window is not None and timed.window[1] is not None,
-          "the profiler window did not close")
-    i0, i1, w0, w1 = timed.window
-    kern = [e for e in timed.prof.key_averages() if _self_device_us(e) > 0]
-    dev_ms = sum(_self_device_us(e) for e in kern) / 1e3
-    window_ms = (w1 - w0) * 1e3
-    busy = dev_ms / window_ms
+    step_ms = timed.step_ms()
+    dev_step_ms, busy, window_ms, _ = timed.device()
+    i0, i1 = timed.window[:2]
     rate = cfg.batch_size / step_ms * 1e3
     print(f"  {n_trainers} trainer(s), {n_trainers} sampler(s): {step_ms:.4f} ms a "
           f"step over steps {a + 1}..{b}, {rate:.0f} triplets/s; traced steps "
-          f"{i0}..{i1}: device {dev_ms / (i1 - i0) * 1e3:.1f} us a step, busy "
+          f"{i0}..{i1}: device {dev_step_ms * 1e3:.1f} us a step, busy "
           f"{busy:.1%} of {window_ms:.1f} ms; whole run {wall:.1f} s; launches "
           f"pairwise_l2sq {launches['pairwise_l2sq']}, fused_update "
           f"{launches['fused_update']}")
     check(launches["pairwise_l2sq"] == 2 * HOGWILD_SCALING_STEPS,
           f"pairwise_l2sq launched {launches['pairwise_l2sq']} times")
     return loss, dict(step_ms=step_ms, triplets_per_s=rate, device_busy=busy,
-                      device_us_per_step=dev_ms / (i1 - i0) * 1e3,
+                      device_us_per_step=dev_step_ms * 1e3,
                       traced_steps=[i0, i1], whole_run_s=wall)
 
 
@@ -1713,7 +1806,12 @@ def dist_compare(np, what, got, want, lr):
     count as tables, and its merge ids must be equal too."""
     (h_got, s_got), (h_want, s_want) = got, want
     l_got, l_want = [m["loss"] for m in h_got], [m["loss"] for m in h_want]
-    print(f"  {what}: losses {l_got} vs {l_want}")
+    if len(l_got) <= DIST_AGREEMENT_STEPS:
+        print(f"  {what}: losses {l_got} vs {l_want}")
+    else:
+        print(f"  {what}: {len(l_got)} losses, the largest difference "
+              f"{np.abs(np.subtract(l_got, l_want)).max():.3e}; the last "
+              f"{l_got[-1]} vs {l_want[-1]}")
     tables = {}
     for name in DIST_TABLES + tuple(k for k in DIST_BUFFERS if k in s_want):
         diff = np.abs(s_got[name] - s_want[name])
@@ -1772,13 +1870,69 @@ def dist_sum_order_witness(np, model):
     return max(off for _, off in tables.values())
 
 
+def dist_checkpoint_holds(np, dev, cfg, final, ckpt_dir, **prog_kw):
+    """Phases 13-15: the checkpoint of step MAIN_PATH_STEPS holds the final
+    global state (the reference's keys, shapes and dtypes) bit for bit and
+    restores in a 1x1 world on the card bit for bit. ``prog_kw`` are the
+    program's pipelining flags. Returns (the saved arrays, held, restored)."""
+    from repro_torch.common.checkpoint import restore_checkpoint
+    from repro_torch.core import distributed as D
+    from repro_torch.core.graph_part import partition
+    from repro_torch.core.rel_part import relation_partition
+    from repro_torch.data.kg_synth import fb15k_like
+    from repro_torch.launch.mesh import run_world
+
+    saved = ckpt_dir / f"step_{MAIN_PATH_STEPS:010d}"
+    files = {p.stem: np.load(p) for p in saved.glob("*.npy")}
+    kg = fb15k_like(scale=1.0, seed=0)
+    book = partition(kg.train, cfg.n_entities, 1)
+    rp = relation_partition(kg.rel_counts(), 1)
+    prog = D.make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared,
+                          **prog_kw)
+    like = {k: np.zeros(shape, dt) for k, (shape, dt) in prog.state_shapes().items()}
+
+    def restore_on_card(grid):
+        arrays = restore_checkpoint(str(ckpt_dir), like, step=MAIN_PATH_STEPS)
+        return D.gather_dist_state(prog, grid, D.dist_state_from_arrays(prog, grid, arrays))
+
+    def equal(x, y):
+        return set(x) == set(y) and all(
+            np.asarray(x[k]).dtype == np.asarray(y[k]).dtype
+            and np.array_equal(x[k], y[k]) for k in x)
+
+    held = equal(files, final) and set(files) == set(like)
+    restored = equal(run_world(1, 1, restore_on_card, device=dev), final)
+    print(f"  {saved.name} holds the final state bit for bit: {held} "
+          f"({sorted(files)}); restored on the card bit for bit: {restored}")
+    return files, held, restored
+
+
+def resumed_first_step(argv, ckpt_dir):
+    """``train.main(argv)`` (a ``--resume`` run); the first step it ran,
+    checked to be the one after MAIN_PATH_STEPS, and its save checked to be
+    the latest checkpoint."""
+    from repro_torch.common.checkpoint import latest_step
+    from repro_torch.launch import engine, train
+
+    class First(engine.Hook):
+        i = None
+
+        def on_step(self, i, state, metrics, stats):
+            self.i = self.i or i
+
+    first = First()
+    train.main(argv, hooks=[first])
+    latest = latest_step(str(ckpt_dir))
+    print(f"  resumed run's first step {first.i}, latest checkpoint {latest}")
+    check(first.i == MAIN_PATH_STEPS + 1, "the resumed run did not start after step 200")
+    check(latest == RESUME_STEPS, "the resumed run did not save")
+    return first.i
+
+
 def run_distributed(torch, np, dev):
     """Phase 13. Returns ({run: launches}, summary)."""
-    from repro_torch.common.checkpoint import latest_step, restore_checkpoint
-    from repro_torch.core import distributed as D
     from repro_torch.kernels import build
     from repro_torch.launch import engine, train
-    from repro_torch.launch.mesh import run_world
 
     base = ["--distributed", "--mesh", "1x1"]
     try:
@@ -1809,49 +1963,12 @@ def run_distributed(torch, np, dev):
 
     # the checkpoint of step 200 holds the final global state, under the
     # reference's keys, and restores in a 1x1 world on the card bit for bit
-    saved = ckpt_dir / f"step_{MAIN_PATH_STEPS:010d}"
-    files = {p.stem: np.load(p) for p in saved.glob("*.npy")}
-
-    def equal(x, y):
-        return set(x) == set(y) and all(
-            np.asarray(x[k]).dtype == np.asarray(y[k]).dtype
-            and np.array_equal(x[k], y[k]) for k in x)
-
-    from repro_torch.core.graph_part import partition
-    from repro_torch.core.rel_part import relation_partition
-    from repro_torch.data.kg_synth import fb15k_like
-
-    kg = fb15k_like(scale=1.0, seed=0)
-    book = partition(kg.train, cfg.n_entities, 1)
-    rp = relation_partition(kg.rel_counts(), 1)
-    prog = D.make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared)
-    like = {k: np.zeros(shape, dt) for k, (shape, dt) in prog.state_shapes().items()}
-
-    def restore_on_card(grid):
-        arrays = restore_checkpoint(str(ckpt_dir), like, step=MAIN_PATH_STEPS)
-        return D.gather_dist_state(prog, grid, D.dist_state_from_arrays(prog, grid, arrays))
-
-    same = equal(files, final)
-    restored = equal(run_world(1, 1, restore_on_card, device=dev), final)
-    print(f"  {saved.name} holds the final state bit for bit: {same} "
-          f"({sorted(files)}); restored on the card bit for bit: {restored}")
-    check(same and restored, "the distributed checkpoint does not hold or restore "
+    _, held, restored = dist_checkpoint_holds(np, dev, cfg, final, ckpt_dir)
+    check(held and restored, "the distributed checkpoint does not hold or restore "
           "the final state")
-
-    class First(engine.Hook):
-        i = None
-
-        def on_step(self, i, state, metrics, stats):
-            self.i = self.i or i
-
-    first = First()
-    train.main(["--dataset", "fb15k", "--model", "transe_l2", *base, "--steps",
-                str(RESUME_STEPS), "--log-every", "5", "--resume", *ckpt],
-               hooks=[first])
-    print(f"  resumed run's first step {first.i}, latest checkpoint "
-          f"{latest_step(str(ckpt_dir))}")
-    check(first.i == MAIN_PATH_STEPS + 1, "the resumed run did not start after step 200")
-    check(latest_step(str(ckpt_dir)) == RESUME_STEPS, "the resumed run did not save")
+    resumed_first_step(["--dataset", "fb15k", "--model", "transe_l2", *base, "--steps",
+                        str(RESUME_STEPS), "--log-every", "5", "--resume", *ckpt],
+                       ckpt_dir)
 
     print(f"  TransE_l1, {DIST_L1_STEPS} steps, {' '.join(base)}")
     metrics = engine.MetricsHook(("loss",))
@@ -1925,14 +2042,8 @@ def merge_time(torch, dev):
 def run_pipelined(torch, np, dev, eager):
     """Phase 14, beside phase 13's summary ``eager``. Returns ({run:
     launches}, summary)."""
-    from repro_torch.common.checkpoint import latest_step, restore_checkpoint
-    from repro_torch.core import distributed as D
-    from repro_torch.core.graph_part import partition
-    from repro_torch.core.rel_part import relation_partition
-    from repro_torch.data.kg_synth import fb15k_like
     from repro_torch.kernels import build
     from repro_torch.launch import engine, train
-    from repro_torch.launch.mesh import run_world
 
     base = ["--distributed", "--mesh", "1x1", "--pipeline-depth", "1"]
     k = PIPE_PUSH_EVERY
@@ -1971,46 +2082,15 @@ def run_pipelined(torch, np, dev, eager):
 
     # the checkpoint of step 200 (after its flush: merge ids all pads)
     # holds the final global state and restores on the card bit for bit
-    saved = ckpt_dir / f"step_{MAIN_PATH_STEPS:010d}"
-    files = {p.stem: np.load(p) for p in saved.glob("*.npy")}
-    kg = fb15k_like(scale=1.0, seed=0)
-    book = partition(kg.train, cfg.n_entities, 1)
-    rp = relation_partition(kg.rel_counts(), 1)
-    prog = D.make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared,
-                          pipeline_depth=1, push_every=k)
-    like = {name: np.zeros(shape, dt) for name, (shape, dt) in prog.state_shapes().items()}
-
-    def restore_on_card(grid):
-        arrays = restore_checkpoint(str(ckpt_dir), like, step=MAIN_PATH_STEPS)
-        return D.gather_dist_state(prog, grid, D.dist_state_from_arrays(prog, grid, arrays))
-
-    def equal(x, y):
-        return set(x) == set(y) and all(
-            np.asarray(x[n]).dtype == np.asarray(y[n]).dtype
-            and np.array_equal(x[n], y[n]) for n in x)
-
-    same = equal(files, final) and set(files) == set(like)
-    restored = equal(run_world(1, 1, restore_on_card, device=dev), final)
+    _, held, restored = dist_checkpoint_holds(np, dev, cfg, final, ckpt_dir,
+                                              pipeline_depth=1, push_every=k)
     pads = bool((final["co_ids"] == -1).all())
-    print(f"  {saved.name} holds the final state bit for bit: {same} ({sorted(files)}); "
-          f"merge ids all pads: {pads}; restored on the card bit for bit: {restored}")
-    check(same and restored and pads, "the pipelined checkpoint does not hold or "
+    print(f"  merge ids all pads: {pads}")
+    check(held and restored and pads, "the pipelined checkpoint does not hold or "
           "restore the final state")
-
-    class First(engine.Hook):
-        i = None
-
-        def on_step(self, i, state, metrics, stats):
-            self.i = self.i or i
-
-    first = First()
-    train.main(["--dataset", "fb15k", "--model", "transe_l2", *base, "--push-every",
-                str(k), "--steps", str(RESUME_STEPS), "--log-every", "5", "--resume",
-                *ckpt], hooks=[first])
-    print(f"  resumed run's first step {first.i}, latest checkpoint "
-          f"{latest_step(str(ckpt_dir))}")
-    check(first.i == MAIN_PATH_STEPS + 1, "the resumed run did not start after step 200")
-    check(latest_step(str(ckpt_dir)) == RESUME_STEPS, "the resumed run did not save")
+    resumed_first_step(["--dataset", "fb15k", "--model", "transe_l2", *base,
+                        "--push-every", str(k), "--steps", str(RESUME_STEPS),
+                        "--log-every", "5", "--resume", *ckpt], ckpt_dir)
 
     print(f"  TransE_l1, {DIST_L1_STEPS} steps, {' '.join(base)} --push-every 2")
     metrics = engine.MetricsHook(("loss",))
@@ -2042,6 +2122,166 @@ def run_pipelined(torch, np, dev, eager):
     return {"pipe_transe_l2": launches, "pipe_transe_l1": l1_launches}, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 15: two trainers and two samplers in the 1x1 NCCL world
+# ---------------------------------------------------------------------------
+def dist_hogwild_cli(torch, np, n_trainers, steps, extra=(), hooks=()):
+    """``train.main`` of phase 13's world with ``--trainers n_trainers
+    --samplers 2``, launch counts set to 0 just before and read just after.
+    Returns (launches, cfg, final global state, losses, wall s)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import engine, train
+
+    metrics = engine.MetricsHook(("loss",))
+    build.reset_launches()
+    t0 = time.perf_counter()
+    cfg, final = train.main(
+        ["--dataset", "fb15k", "--model", "transe_l2", "--distributed", "--mesh", "1x1",
+         "--trainers", str(n_trainers), "--samplers", "2", "--steps", str(steps),
+         "--log-every", "50", *extra], hooks=[metrics, *hooks])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    loss = np.asarray(metrics.history["loss"])
+    check(int(final["step"]) == steps and len(loss) == steps,
+          f"x{n_trainers}: final step {final['step']}, {len(loss)} hook steps")
+    check(np.isfinite(loss).all() and np.isfinite(final["entity"]).all(),
+          f"x{n_trainers}: non-finite loss or tables")
+    return launches, cfg, final, loss, wall
+
+
+def ordered_batches(grid, prog, arrays, batches):
+    """``run_batches``'s contract through the runtime's ordered mode: two
+    trainers, two samplers, sampler w giving ``batches[w::2]``, so step t
+    takes batch t. Returns (each step's metrics as floats, the global final
+    state on rank 0)."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import engine
+
+    def factory(wid):
+        own = iter(batches[wid::2] * 2)  # more than the loop takes
+        return lambda: (D.batch_to_rank(next(own), grid), None)
+
+    history = []
+
+    class Record(engine.Hook):
+        def on_step(self, i, state, metrics, stats):
+            history.append({k: float(v) for k, v in metrics.items()})
+
+    state = engine.train_loop(
+        D.build_dist_train_step(prog, grid), D.dist_state_from_arrays(prog, grid, arrays),
+        None, len(batches), hooks=[Record()], n_trainers=2, n_samplers=2,
+        sampler_factory=factory, ordered=True)
+    return history, D.gather_dist_state(prog, grid, state)
+
+
+def run_dist_hogwild(torch, np, dev, eager, eager_launches):
+    """Phase 15, beside phase 13's summary ``eager`` and launches
+    ``eager_launches``. Returns ({run: launches}, summary)."""
+    from repro_torch.common import telemetry
+    from repro_torch.launch.mesh import run_world
+
+    shutil.rmtree(DIST_HOG_DIR, ignore_errors=True)
+    DIST_HOG_DIR.mkdir(parents=True)
+    ckpt_dir = DIST_HOG_DIR / "ckpt"
+    m_path, t_path = DIST_HOG_DIR / "m.jsonl", DIST_HOG_DIR / "t.json"
+    ckpt = ["--ckpt-dir", str(ckpt_dir), "--save-every", "100"]
+    files = ["--metrics-out", str(m_path), "--trace-out", str(t_path)]
+    print(f"  TransE_l2, {MAIN_PATH_STEPS} steps, --distributed --mesh 1x1 --trainers 2 "
+          f"--samplers 2 {' '.join(ckpt)} --metrics-out {m_path.relative_to(ROOT)} "
+          f"--trace-out {t_path.relative_to(ROOT)}")
+    window = TrainerWindow(torch, DIST_HOG_TIMED, DIST_HOG_TRACED)
+    launches, cfg, final, loss, wall = dist_hogwild_cli(
+        torch, np, 2, MAIN_PATH_STEPS, [*ckpt, *files], hooks=[window])
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    got = {name: n for name, n in launches.items() if n}
+    want = {name: n for name, n in eager_launches.items() if n}
+    print(f"  loss: first-10 mean {first:.4f} -> last-10 mean {last:.4f}; launches "
+          f"{got}, phase 13's {want}; T5 {cfg.overlap_update}")
+    check(last < first, f"dist hogwild loss did not fall: {first} -> {last}")
+    check(cfg.overlap_update, "T5 turned off")
+    check(got.get("pairwise_l2sq") == 2 * MAIN_PATH_STEPS and got == want,
+          f"dist hogwild launches {got}, not phase 13's {want}")
+
+    step_ms = window.step_ms()
+    dev_step_ms, busy, window_ms, kern = window.device()
+    i0, i1 = window.window[:2]
+    summary = dict(step_ms=step_ms, device_ms_per_step=dev_step_ms, device_busy=busy,
+                   triplets_per_s=cfg.batch_size / step_ms * 1e3, traced_steps=[i0, i1],
+                   loss_first10=first, loss_last10=last, whole_run_s=wall)
+    a, b = DIST_HOG_TIMED
+    for what, run in (("2 trainers, 2 samplers", summary), ("eager (phase 13)", eager)):
+        print(f"  {what}: step {run['step_ms']:.4f} ms, device "
+              f"{run['device_ms_per_step'] * 1e3:.1f} us a step, idle "
+              f"{1 - run['device_busy']:.1%}")
+    print(f"  (steps {a + 1}..{b} on the host clock; traced steps {i0}..{i1}, "
+          f"{window_ms:.1f} ms; whole run {wall:.1f} s incl. graph generation)")
+    print("  device time a step by kernel:")
+    for e in sorted(kern, key=_self_device_us, reverse=True)[:8]:
+        print(f"    {_self_device_us(e) / (i1 - i0):9.2f} us  "
+              f"x{e.count / (i1 - i0):4.1f}  {e.key[:90]}")
+
+    n_lines = telemetry.validate_metrics_jsonl(
+        str(m_path), require=("engine/steps", "runtime/steps"))
+    n_events = telemetry.validate_trace(str(t_path))
+    counters = json.loads(m_path.read_text().splitlines()[-1])["counters"]
+    events = json.loads(t_path.read_text())["traceEvents"]
+    tracks = {e["args"]["name"] for e in events if e.get("ph") == "M"}
+    spans = {e["name"] for e in events if e.get("ph") == "X"}
+    print(f"  {m_path.name}: {n_lines} snapshots, runtime/steps "
+          f"{counters.get('runtime/steps')}, engine/steps {counters.get('engine/steps')}; "
+          f"{t_path.name}: {n_events} events, tracks {sorted(tracks)}, spans "
+          f"{sorted(spans)}")
+    check(counters.get("runtime/steps") == counters.get("engine/steps") == MAIN_PATH_STEPS,
+          "the step counters of the metrics file")
+    check({"trainer-0", "trainer-1", "sampler-0", "sampler-1"} <= tracks,
+          f"trace lacks a trainer or sampler track: {sorted(tracks)}")
+    check({"runtime/step", "runtime/wait_batch", "runtime/wait_turn"} <= spans,
+          f"trace lacks a runtime span: {sorted(spans)}")
+    summary.update(snapshots=n_lines, trace_events=n_events)
+
+    _, held, restored = dist_checkpoint_holds(np, dev, cfg, final, ckpt_dir)
+    check(held and restored, "the checkpoint does not hold or restore the final state")
+    resumed_first_step(["--dataset", "fb15k", "--model", "transe_l2", "--distributed",
+                        "--mesh", "1x1", "--trainers", "2", "--samplers", "2", "--steps",
+                        str(RESUME_STEPS), "--log-every", "5", "--resume", *ckpt],
+                       ckpt_dir)
+
+    print(f"  the same world with --trainers 1 --samplers 2 (the same batch order), "
+          f"{MAIN_PATH_STEPS} steps")
+    one_window = TrainerWindow(torch, DIST_HOG_TIMED, DIST_HOG_TRACED)
+    _, _, one, one_loss, _ = dist_hogwild_cli(torch, np, 1, MAIN_PATH_STEPS,
+                                              hooks=[one_window])
+    one_dev_ms, one_busy, _, _ = one_window.device()
+    summary["one_trainer"] = dict(step_ms=one_window.step_ms(),
+                                  device_ms_per_step=one_dev_ms, device_busy=one_busy)
+    print(f"  1 trainer, 2 samplers: step {one_window.step_ms():.4f} ms, device "
+          f"{one_dev_ms * 1e3:.1f} us a step, idle {1 - one_busy:.1%}")
+    losses_ok, tables, tables_ok, ids_ok = dist_compare(
+        np, "2 trainers vs 1", ([{"loss": float(v)} for v in loss], final),
+        ([{"loss": float(v)} for v in one_loss], one), cfg.lr)
+    check(losses_ok and tables_ok and ids_ok,
+          "2 trainers and 1 trainer on one batch order part beyond phase 4's rule")
+    summary["vs_one_trainer"] = {name: dict(max_diff=most, share_off=off)
+                                 for name, (most, off) in tables.items()}
+
+    print(f"  card (NCCL) vs CPU (gloo), 1x1 worlds, 2 trainers and 2 samplers, "
+          f"{DIST_AGREEMENT_STEPS} dim-400 steps at batch 256, k 64, lr 0.05")
+    summary["agreement"] = {}
+    for model in ("transe_l2", "distmult"):
+        prog, init, batches = dist_case(np, model)
+        runs = {d: run_world(1, 1, ordered_batches, (prog, init, batches), device=d)
+                for d in (dev, "cpu")}
+        losses_ok, tables, tables_ok, ids_ok = dist_compare(
+            np, f"dist hogwild {model} card vs cpu", runs[dev], runs["cpu"], prog.cfg.lr)
+        check(losses_ok and tables_ok and ids_ok,
+              f"dist hogwild {model}: card and CPU disagree")
+        summary["agreement"][model] = {name: dict(max_diff=most, share_off=off)
+                                       for name, (most, off) in tables.items()}
+    shutil.rmtree(DIST_HOG_DIR, ignore_errors=True)
+    return {"hogwild_dist_transe_l2": launches}, summary
+
+
 def main() -> int:
     import torch
 
@@ -2055,6 +2295,7 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    load_rates()
     import numpy as np
 
     from repro_torch.data.kg_synth import fb15k_like
@@ -2127,7 +2368,7 @@ def main() -> int:
 
     print(f"== 9. Qwen serve: python -m repro_torch.launch.serve {' '.join(SERVE_ARGS)}")
     serve_launches, serve_path = run_serve(torch, np, dev, SERVE_ARGS, "flash_attention",
-                                           reuse, scaled_f32=False)
+                                           reuse, scaled_f32=False, files=SERVE_DIR)
     del reuse
     torch.cuda.empty_cache()
 
@@ -2153,11 +2394,16 @@ def main() -> int:
           f"{PIPE_PUSH_EVERY} (NCCL, one rank)")
     pipe_launches, pipe_path = run_pipelined(torch, np, dev, dist_path)
 
+    print("== 15. distributed Hogwild: python -m repro_torch.launch.train --dataset "
+          "fb15k --distributed --mesh 1x1 --trainers 2 --samplers 2 (NCCL, one rank)")
+    dh_launches, dh_path = run_dist_hogwild(torch, np, dev, dist_path,
+                                            dist_launches["dist_transe_l2"])
+
     launches_of = {"transe_l2": l2_launches, "transe_l1": l1_launches,
                    "distmult": dm_launches, "qwen_prefill": pre_launches,
                    "qwen_serve": serve_launches, "mamba2_prefill": m_pre_launches,
                    "mamba2_serve": m_serve_launches, **hog_launches,
-                   **dist_launches, **pipe_launches}
+                   **dist_launches, **pipe_launches, **dh_launches}
     kernels = []
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches_of.items()}
@@ -2181,7 +2427,8 @@ def main() -> int:
                                 "distmult": dm_path, "qwen_prefill": pre_path, "qwen_serve": serve_path,
                                 "mamba2_prefill": m_pre_path,
                                 "mamba2_serve": m_serve_path, "hogwild": hog_path,
-                                "distributed": dist_path, "pipelined": pipe_path}}))
+                                "distributed": dist_path, "pipelined": pipe_path,
+                                "dist_hogwild": dh_path}}))
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Host data pipeline: N sampler workers feeding one bounded batch queue.
+"""Host data pipeline: N sampler workers feeding bounded batch queues.
 
 DGL-KE offloads sampling to CPU workers while accelerators compute (paper
 §3.3) and runs several sampler/trainer processes per machine (§3.1). A port
@@ -21,6 +21,16 @@ worker hands it to the consumers and exits; the ``get()`` that reaches it,
 and every ``get()`` after it, raises ``RuntimeError`` from it. In the JAX
 package the worker thread dies and its consumer waits for a batch that
 never comes.
+
+The ordered mode (``ordered=True``) is the port's own, for the distributed
+path's several trainers: every rank of a world must step the same batch
+sequence, and threads reach a shared queue in an order no rank can
+repeat. Each worker then fills a bounded queue of its own, and batch t is
+worker ``t mod N``'s next one: with the same sample callables, built from
+the same ``worker_rngs``, every process hands out one sequence. One
+shared queue would deadlock there: it could fill with worker 1's batches
+while batch t waits for worker 0's. The free mode keeps the reference's
+single queue and arrival order.
 
 ``Prefetcher`` is the ``n_workers=1`` case.
 """
@@ -58,23 +68,35 @@ def worker_rngs(seed: int, n: int) -> List[np.random.Generator]:
 
 
 class WorkerPool:
-    """N producer workers -> one bounded queue with backpressure stats.
+    """N producer workers -> bounded queues with backpressure stats.
 
     ``factory(worker_id)`` builds each worker's zero-arg sample callable.
     Give every worker its own RNG (see ``worker_rngs``): workers run
     concurrently and must not share a numpy Generator.
 
-    Consume with ``get()`` / iteration; several consumer (trainer) threads
-    may ``get()`` concurrently. ``close()`` drains until every worker thread
-    has exited.
+    Free mode (the default): one queue of ``depth`` batches, in arrival
+    order. Ordered mode: one queue of ``ceil(depth / n_workers)`` batches a
+    worker, read round-robin (module docstring).
+
+    Consume with ``get()`` / ``get_numbered()`` / iteration; several
+    consumer (trainer) threads may take batches concurrently: one at a time
+    holds the take lock, so sequence numbers and batches pair up.
+    ``close()`` drains until every worker thread has exited.
     """
 
     def __init__(self, factory: Callable[[int], Callable[[], object]],
-                 n_workers: int = 1, depth: int = 2):
+                 n_workers: int = 1, depth: int = 2, ordered: bool = False):
         if n_workers < 1:
             raise ValueError(f"n_workers must be >= 1, got {n_workers}")
-        self.q: queue.Queue = queue.Queue(maxsize=depth)
-        self._peeked = _NOTHING  # one-item lookahead cell (see peek())
+        self.ordered = ordered
+        if ordered:
+            per_worker = max(1, -(-depth // n_workers))
+            self.queues = [queue.Queue(maxsize=per_worker) for _ in range(n_workers)]
+        else:
+            self.queues = [queue.Queue(maxsize=depth)]
+        self._taken = 0  # batches handed out: the next one's sequence number
+        self._take_lock = threading.Lock()
+        self._peeked = _NOTHING  # (seq, batch) lookahead cell (see peek())
         self._failure: Optional[_Failure] = None  # the first one a get() met
         self._stop = threading.Event()
         self._stat_lock = threading.Lock()
@@ -83,14 +105,15 @@ class WorkerPool:
         self._consumer_wait = 0.0
         self.threads: List[threading.Thread] = []
         for wid in range(n_workers):
-            th = threading.Thread(target=self._run, args=(factory(wid),),
+            q = self.queues[wid % len(self.queues)]
+            th = threading.Thread(target=self._run, args=(factory(wid), q),
                                   daemon=True, name=f"sampler-{wid}")
             self.threads.append(th)
         for th in self.threads:
             th.start()
 
     # ---- producer side -----------------------------------------------------
-    def _run(self, sample_fn: Callable[[], object]):
+    def _run(self, sample_fn: Callable[[], object], q: queue.Queue):
         held = _NOTHING
         while not self._stop.is_set():
             if held is _NOTHING:
@@ -101,13 +124,13 @@ class WorkerPool:
                     held = _Failure(exc)
             try:
                 # fast path: space available, no wait accounted
-                self.q.put_nowait(held)
+                q.put_nowait(held)
             except queue.Full:
                 # backpressure: hold the batch and retry — re-running
                 # sample_fn here would silently discard sampled work
                 t0 = time.perf_counter()
                 try:
-                    self.q.put(held, timeout=0.2)
+                    q.put(held, timeout=0.2)
                 except queue.Full:
                     self._add_wait("_producer_wait", t0)
                     continue  # still holding `held`; check stop, retry
@@ -118,7 +141,7 @@ class WorkerPool:
             with self._stat_lock:
                 self._produced += 1
             telemetry.inc("pipeline/produced")
-            telemetry.gauge("pipeline/queue_depth", self.q.qsize())
+            telemetry.gauge("pipeline/queue_depth", self.qsize())
 
     def _add_wait(self, attr: str, t0: float):
         dt = time.perf_counter() - t0
@@ -131,23 +154,34 @@ class WorkerPool:
         """Next batch; blocks (``queue.Empty`` on timeout). Re-raises a
         worker's ``sample_fn`` exception. Thread-safe unless ``peek()`` is in
         use (see there)."""
-        if self._failure is not None:
-            self._raise(self._failure)
-        if self._peeked is not _NOTHING:
-            item, self._peeked = self._peeked, _NOTHING
-            return item
-        try:
-            item = self.q.get_nowait()
-        except queue.Empty:
-            t0 = time.perf_counter()
+        return self.get_numbered(timeout)[1]
+
+    def get_numbered(self, timeout: Optional[float] = None):
+        """``(t, batch)``: the next batch and its 0-based sequence number,
+        paired under the take lock. In an ordered pool batch t is worker
+        ``t mod N``'s; a timeout (``queue.Empty``) hands nothing out, so the
+        next call waits for the same worker."""
+        with self._take_lock:
+            if self._failure is not None:
+                self._raise(self._failure)
+            if self._peeked is not _NOTHING:
+                out, self._peeked = self._peeked, _NOTHING
+                return out
+            q = self.queues[self._taken % len(self.queues)]
             try:
-                item = self.q.get(timeout=timeout)
-            finally:
-                self._add_wait("_consumer_wait", t0)
-        if isinstance(item, _Failure):
-            self._failure = item
-            self._raise(item)
-        return item
+                item = q.get_nowait()
+            except queue.Empty:
+                t0 = time.perf_counter()
+                try:
+                    item = q.get(timeout=timeout)
+                finally:
+                    self._add_wait("_consumer_wait", t0)
+            if isinstance(item, _Failure):
+                self._failure = item
+                self._raise(item)
+            seq = self._taken
+            self._taken += 1
+            return seq, item
 
     @staticmethod
     def _raise(failure: _Failure):
@@ -163,8 +197,8 @@ class WorkerPool:
         The Hogwild runtime never peeks.
         """
         if self._peeked is _NOTHING:
-            self._peeked = self.get(timeout)
-        return self._peeked
+            self._peeked = self.get_numbered(timeout)
+        return self._peeked[1]
 
     def __iter__(self) -> Iterator:
         return self
@@ -173,11 +207,15 @@ class WorkerPool:
         return self.get()
 
     # ---- diagnostics / shutdown -------------------------------------------
+    def qsize(self) -> int:
+        """Batches waiting in the queues."""
+        return sum(q.qsize() for q in self.queues)
+
     def stats(self) -> dict:
         """Backpressure snapshot: who is waiting on whom."""
         with self._stat_lock:
             return {
-                "queue_depth": self.q.qsize(),
+                "queue_depth": self.qsize(),
                 "produced": self._produced,
                 "producer_wait_s": self._producer_wait,
                 "consumer_wait_s": self._consumer_wait,
@@ -191,11 +229,12 @@ class WorkerPool:
         deadline = time.monotonic() + timeout
         while (any(t.is_alive() for t in self.threads)
                and time.monotonic() < deadline):
-            try:
-                while True:
-                    self.q.get_nowait()
-            except queue.Empty:
-                pass
+            for q in self.queues:
+                try:
+                    while True:
+                        q.get_nowait()
+                except queue.Empty:
+                    pass
             for t in self.threads:
                 if t.is_alive():
                     t.join(timeout=0.05)

@@ -32,7 +32,8 @@ The runtime calls every ``on_step`` holding the slot's lock, with a
 monotone step counter, so hooks may keep plain mutable state without locks
 of their own and read tables no apply is changing; ``stats`` also carries
 ``trainer`` (which trainer stepped) and ``queue_depth`` (sampler-queue
-backpressure).
+backpressure). With ``ordered`` (the distributed path) batch t comes from
+sampler ``t mod N`` and step t, hooks included, runs after step t-1.
 """
 
 from __future__ import annotations
@@ -337,7 +338,7 @@ def _finish(i: int, state, hooks):
 def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
                hooks: Sequence[Hook] = (), prefetch: bool = True,
                n_trainers: int = 1, n_samplers: int = 1, sampler_factory=None,
-               split_step=None):
+               split_step=None, ordered: bool = False):
     """Drive ``step_fn`` from ``start`` (exclusive) to ``n_steps``.
 
     make_batch() -> (batch, stats); stats may be None. With ``prefetch``
@@ -349,6 +350,9 @@ def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
     sample callable per sampler worker (required for n_samplers > 1), and
     ``split_step=(grad_fn, apply_fn)`` enables stale-gradient Hogwild steps
     (without it the whole ``step_fn`` is swapped under the slot's lock).
+    ``ordered`` (the distributed path) makes batch t sampler ``t mod N``'s
+    and runs the steps, each with its hooks, in that order, so every rank
+    of a world steps one sequence.
 
     A ``step_fn`` with a truthy ``lookahead`` attribute (the pipelined
     distributed runner, ``core.distributed.PipelinedDistStep``) is called as
@@ -370,7 +374,8 @@ def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
         return hogwild_train_loop(
             step_fn, state, make_batch, n_steps, start=start, hooks=hooks,
             n_trainers=n_trainers, n_samplers=n_samplers,
-            sampler_factory=sampler_factory, split_step=split_step)
+            sampler_factory=sampler_factory, split_step=split_step,
+            ordered=ordered)
     if start >= n_steps:
         return _finish(start, state, hooks)
     if lookahead and not prefetch:

@@ -5,7 +5,7 @@ embedding store without locks; §3.3 overlaps CPU sampling with device
 compute. A port of the JAX package's launch/runtime.py:
 
 * ``WorkerPool`` (data/pipeline.py) — N sampler threads feed one bounded
-  batch queue.
+  batch queue (or, ordered, one queue each, read round-robin).
 * ``StoreSlot`` — the shared-store cell: ``read()`` is a lock-free
   reference read, ``swap(fn)`` publishes ``fn(current)`` under ``lock``.
 * ``hogwild_train_loop`` — M trainer threads, each looping:
@@ -22,6 +22,17 @@ compute. A port of the JAX package's launch/runtime.py:
   Without a ``(grad_fn, apply_fn)`` split the whole ``step_fn`` is swapped
   (read-latest -> step -> publish, serialised by the lock): trainers then
   overlap sampling and hook work, not steps.
+
+* **Ordered mode** (``ordered=True``; the distributed path, where every
+  step and every checkpoint gather is a collective that all ranks must
+  issue in one order). The pool hands out batch t as sampler ``t mod N``'s
+  next one, and steps pass a turnstile in sequence order: the trainer
+  holding batch t waits until step t-1 is done, then swaps the whole step,
+  runs that step's hooks and lets t+1 in. So every rank steps one batch
+  sequence and its hooks see step ``start + t + 1`` on batch t. Trainers
+  overlap sampling, the batch's copy to the card and waiting, not steps,
+  as in the reference's multi-trainer distributed run; any order the
+  turnstile fixes is one the reference's queue could have produced.
 
 What differs from the reference, because PyTorch updates the tables in
 place where JAX publishes immutable stores:
@@ -43,7 +54,9 @@ place where JAX publishes immutable stores:
   caches fill, on one thread.
 
 A trainer's exception stops the others and re-raises in the caller; no
-thread falls back to the CPU.
+thread falls back to the CPU. In ordered mode a failed step does not open
+the turnstile: the trainers waiting at it stop instead of issuing the next
+step's collectives.
 """
 
 from __future__ import annotations
@@ -109,12 +122,15 @@ class _Counter:
 
 
 def _cuda_device_of(state) -> Optional[torch.device]:
-    """The CUDA device of the state's first tensor field; None for a state
-    without CUDA tensors (CPU tables, or a counter in tests)."""
+    """The CUDA device of the state's first tensor field (or value, for a
+    dict); None for a state without CUDA tensors (CPU tables, or a counter
+    in tests)."""
     if torch.is_tensor(state):
         tensors = [state]
     elif dataclasses.is_dataclass(state):
         tensors = [getattr(state, f.name) for f in dataclasses.fields(state)]
+    elif isinstance(state, dict):  # the distributed state: this rank's blocks
+        tensors = list(state.values())
     else:
         tensors = []
     for t in tensors:
@@ -145,6 +161,7 @@ def hogwild_train_loop(
     n_samplers: int = 1,
     sampler_factory: Optional[Callable[[int], Callable[[], object]]] = None,
     split_step: Optional[Tuple[Callable, Callable]] = None,
+    ordered: bool = False,
 ):
     """Drive ``n_trainers`` Hogwild trainers from ``start`` to ``n_steps``.
 
@@ -159,6 +176,10 @@ def hogwild_train_loop(
     Without it ``step_fn(state, batch) -> (state, metrics)`` is swapped
     whole.
 
+    ``ordered`` fixes the batch order (sampler ``t mod N`` gives batch t)
+    and steps in that order, each with its hooks (module docstring); it
+    takes the whole-step swap only.
+
     Hooks run serialised, holding the slot's lock, with a monotone 1-based
     step number that counts completed steps; ``stats`` carries ``trainer``
     and ``queue_depth``. Returns the final state after every trainer has
@@ -169,6 +190,9 @@ def hogwild_train_loop(
     if n_samplers > 1 and sampler_factory is None:
         raise ValueError("n_samplers > 1 requires sampler_factory (each "
                          "sampler worker needs its own RNG stream)")
+    if ordered and split_step is not None:
+        raise ValueError("ordered steps take the whole-step swap: a split "
+                         "step's gradient phase would leave the turnstile")
     device = _cuda_device_of(state)
     stream = None if device is None else torch.cuda.current_stream(device)
     factory = sampler_factory or (lambda _wid: make_batch)
@@ -184,7 +208,7 @@ def hogwild_train_loop(
         return sample
 
     pool = WorkerPool(on_card_factory, n_workers=n_samplers,
-                      depth=2 * max(n_trainers, n_samplers))
+                      depth=2 * max(n_trainers, n_samplers), ordered=ordered)
     slot = StoreSlot(state)
     todo = _Counter(n_steps - start)
     done = [start]
@@ -192,6 +216,22 @@ def hogwild_train_loop(
     first_done = threading.Event()
     errors: list = []
     grad_fn, apply_fn = split_step if split_step is not None else (None, None)
+    turn = threading.Condition()  # ordered mode: the next step to run
+    next_turn = [0]
+
+    def wait_turn(seq) -> bool:
+        """Block until step ``seq`` is next; False if the run stopped."""
+        with turn:
+            while next_turn[0] != seq:
+                if stop.is_set():
+                    return False
+                turn.wait(0.1)
+        return True
+
+    def end_turn():
+        with turn:
+            next_turn[0] += 1
+            turn.notify_all()
 
     def step_once(tid, batch, stats):
         if grad_fn is not None:
@@ -221,7 +261,7 @@ def hogwild_train_loop(
             done[0] += 1
             st = dict(stats) if stats else {}
             st.setdefault("trainer", tid)
-            st.setdefault("queue_depth", pool.q.qsize())
+            st.setdefault("queue_depth", pool.qsize())
             with telemetry.span("runtime/hooks"):
                 for h in hooks:
                     h.on_step(done[0], new, metrics, st)
@@ -238,11 +278,18 @@ def hogwild_train_loop(
                             return
                 while not stop.is_set() and todo.claim():
                     with telemetry.span("runtime/wait_batch"):
-                        batch_stats = _get(pool, stop)
-                    if batch_stats is None:  # shut down while waiting
+                        got = _get(pool, stop)
+                    if got is None:  # shut down while waiting
                         todo.unclaim()
                         return
-                    step_once(tid, *batch_stats)
+                    seq, (batch, stats) = got
+                    if ordered:
+                        with telemetry.span("runtime/wait_turn"):
+                            if not wait_turn(seq):
+                                return
+                    step_once(tid, batch, stats)
+                    if ordered:  # only after a step that completed
+                        end_turn()
                     first_done.set()
         except BaseException as e:  # propagate to the caller, release peers
             errors.append(e)
@@ -269,10 +316,11 @@ def hogwild_train_loop(
 
 
 def _get(pool: WorkerPool, stop: threading.Event):
-    """Blocking ``pool.get`` that stays responsive to the stop event."""
+    """Blocking ``pool.get_numbered`` that stays responsive to the stop
+    event: ``(sequence number, batch)``, or None once stopped."""
     while not stop.is_set():
         try:
-            return pool.get(timeout=0.1)
+            return pool.get_numbered(timeout=0.1)
         except queue.Empty:
             continue
     return None

@@ -5,12 +5,16 @@ of the zoo, reduced or full.
         --full --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --full --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --metrics-out build/serve_m.jsonl --trace-out build/serve_t.json
 
 A port of the JAX package's launch/serve.py: the prompt goes in token by
 token through ``build_serve_step`` to fill the decode caches (the KV
 caches of attention layers; the conv windows and SSM state of Mamba2
 layers), then ``--gen`` tokens are greedy-decoded, through ``run_loop``
-and ``ThroughputHook``. The prompts are
+and ``ThroughputHook`` (and, with ``--metrics-out``/``--trace-out``, a
+``TelemetryHook`` that writes a JSONL snapshot every 16 steps and at the
+end, and the Chrome trace, as the JAX driver does). The prompts are
 ``np.random.default_rng(seed).integers(0, vocab, (B, T))``, as the JAX
 package makes them; the weights are drawn from a
 ``torch.Generator`` seeded with ``--seed``. Without ``--full`` the reduced
@@ -20,9 +24,6 @@ kernel of the port: decode attention and the Mamba2 recurrence are plain
 PyTorch, as they are plain jnp in JAX. Batched prefill is
 ``models.steps.build_prefill_step(model, use_flash=True)``, through the
 flash kernel (attention) and the ssd_scan kernel (Mamba2).
-
-Not ported yet, and refused with the ROADMAP item that ports them:
-telemetry files (``--metrics-out``, ``--trace-out``).
 """
 
 from __future__ import annotations
@@ -32,12 +33,6 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
-
-# flag -> ROADMAP item that ports it
-NOT_PORTED = {
-    "metrics_out": "Queue A9 (benchmarks and telemetry files)",
-    "trace_out": "Queue A9 (benchmarks and telemetry files)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,9 +45,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card) or cpu")
-    # accepted so that the reference's command lines fail loudly, not oddly
-    ap.add_argument("--metrics-out", default="")
-    ap.add_argument("--trace-out", default="")
+    ap.add_argument("--metrics-out", default="",
+                    help="write JSONL telemetry snapshots here "
+                         "(schema: docs/TELEMETRY.md)")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace-event JSON here (Perfetto)")
     return ap
 
 
@@ -90,18 +87,27 @@ def generate(model, params, tokens: np.ndarray, gen: int, hooks: Sequence = ()
 
 
 def serve(args):
-    """Returns the generated ids and the logits of every step."""
+    """Returns the generated ids and the logits of every step. With
+    ``--metrics-out`` or ``--trace-out`` an enabled telemetry registry is
+    installed for the run and the previous one restored after it."""
+    from repro_torch.common import telemetry
+
+    if not (args.metrics_out or args.trace_out):
+        return _serve(args)
+    prev = telemetry.set_registry(
+        telemetry.MetricsRegistry(enabled=True, trace=bool(args.trace_out)))
+    try:
+        return _serve(args)
+    finally:
+        telemetry.set_registry(prev)
+
+
+def _serve(args):
     from repro_torch.common.device import resolve_device
     from repro_torch.configs import get_arch
-    from repro_torch.launch.engine import ThroughputHook
+    from repro_torch.launch.engine import TelemetryHook, ThroughputHook
     from repro_torch.models.transformer import build_model
 
-    defaults = build_parser().parse_args([])
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag) != getattr(defaults, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not yet ported to repro_torch: "
-                f"ROADMAP {item}")
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if not args.full:
@@ -114,8 +120,11 @@ def serve(args):
     B, T = args.batch, args.prompt_len
     tokens = rng.integers(0, cfg.vocab_size, (B, T))
 
-    gen, logits = generate(model, params, tokens, args.gen,
-                           hooks=[ThroughputHook(items_per_step=B, label="tok")])
+    hooks = [ThroughputHook(items_per_step=B, label="tok")]
+    if args.metrics_out or args.trace_out:
+        hooks.append(TelemetryHook(metrics_out=args.metrics_out or None,
+                                   trace_out=args.trace_out or None, every=16))
+    gen, logits = generate(model, params, tokens, args.gen, hooks=hooks)
     print(f"arch={cfg.name} reduced={not args.full} batch={B}")
     print(f"generated tokens:\n{gen}")
     if not bool(torch.isfinite(logits[-1]).all()):

@@ -13,6 +13,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
         --distributed --mesh 2x2 --device cpu --steps 20 --scale 0.05 \\
         --pipeline-depth 1 --push-every 4
+    PYTHONPATH=src python -m repro_torch.launch.train --dataset fb15k \\
+        --distributed --mesh 2x2 --device cpu --steps 20 --scale 0.05 \\
+        --trainers 2 --samplers 2
 
 runs on the GPU through the port's CUDA kernels; ``--device cpu`` runs the
 same code with the kernels' plain PyTorch versions. Without ``--device cpu``
@@ -33,10 +36,15 @@ Switchable as in the JAX package's launch/train.py:
     --trainers N                  (§3.1 Hogwild trainer threads on one card;
                                    in joint mode each computes gradients
                                    against possibly stale tables and applies
-                                   them to the latest; in naive mode trainers
-                                   share the whole-step swap)
+                                   them to the latest; in naive mode, and
+                                   with --distributed, trainers share the
+                                   whole-step swap)
     --samplers N                  (§3.3 sampler workers feeding one bounded
-                                   batch queue, each with its own RNG stream)
+                                   batch queue, each with its own RNG stream;
+                                   with --distributed one queue each, and
+                                   step t takes sampler t mod N's batch, so
+                                   every rank steps one batch sequence and
+                                   issues its collectives in one order)
     --metrics-out F, --trace-out F
                                   (JSONL telemetry snapshots every
                                    --log-every steps; a Chrome trace with one
@@ -60,12 +68,10 @@ Switchable as in the JAX package's launch/train.py:
                                    the device, so this trains on cuda and is
                                    refused on --device cpu)
 
-Multi-trainer and pipelined I/O turn T5 overlap off (each already overlaps
-updates with compute; the deferred buffers are single-writer), as in the
-JAX package, and the two cannot be combined.
-
-Not ported yet, and refused with the ROADMAP item that ports it:
---trainers/--samplers above 1 with --distributed.
+Single-machine multi-trainer and pipelined I/O turn T5 overlap off (each
+already overlaps updates with compute; the deferred buffers are
+single-writer), as in the JAX package, and the two cannot be combined.
+Distributed trainers keep T5 on, as JAX's do: their steps are serialised.
 """
 
 from __future__ import annotations
@@ -77,13 +83,6 @@ from typing import Sequence
 
 import numpy as np
 import torch
-
-# refused with --distributed only (flag -> ROADMAP item that ports it):
-# every rank must step the same batch, with its collectives in one order
-NOT_PORTED_DISTRIBUTED = {
-    "trainers": "Queue A7.4 (--trainers/--samplers with --distributed)",
-    "samplers": "Queue A7.4 (--trainers/--samplers with --distributed)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -193,12 +192,6 @@ def train(args, hooks: Sequence = ()):
         raise SystemExit("--pipeline-depth/--push-every are incompatible "
                          "with --trainers/--samplers > 1 (the lookahead is "
                          "single-consumer; see launch/engine.train_loop)")
-    defaults = build_parser().parse_args([])
-    for flag, item in (NOT_PORTED_DISTRIBUTED if args.distributed else {}).items():
-        if getattr(args, flag) != getattr(defaults, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} with --distributed is not yet "
-                f"ported to repro_torch: ROADMAP {item}")
     if args.use_kernel and args.device != "cuda":
         raise ValueError(
             "--use-kernel: the port's kernels run on CUDA tensors only, and "
@@ -315,7 +308,14 @@ def _dist_rank(grid, args, hooks=()):
     """One rank of ``--distributed``: the reference's
     ``launch/train.py::_train_distributed`` on this rank's blocks. Rank 0
     prints, logs, writes the telemetry files and the checkpoints (the
-    global state, gathered from every rank), and runs ``hooks``."""
+    global state, gathered from every rank); ``hooks`` run on the rank
+    they are given to (``train`` gives them to rank 0).
+
+    With ``--trainers/--samplers`` above 1 every rank builds the same
+    samplers from ``worker_rngs(seed, N)`` and steps in the ordered mode of
+    the runtime: step t takes sampler ``t mod N``'s batch, and the steps,
+    with their hooks (the checkpoint gathers among them), run in that
+    order on every rank."""
     from repro_torch.common.checkpoint import (
         latest_step, restore_checkpoint, save_checkpoint,
     )
@@ -326,6 +326,7 @@ def _dist_rank(grid, args, hooks=()):
     from repro_torch.core.graph_part import cut_fraction, partition
     from repro_torch.core.rel_part import relation_partition
     from repro_torch.core.sampling import DistSampler
+    from repro_torch.data.pipeline import worker_rngs
     from repro_torch.launch.engine import (
         CheckpointHook, LoggingHook, TelemetryHook, train_loop,
     )
@@ -364,9 +365,17 @@ def _dist_rank(grid, args, hooks=()):
     else:
         state = init_dist_state(prog, grid, args.seed)
 
-    def make_batch():
-        db = sampler.sample()
-        return batch_to_rank(db, grid), db.stats
+    def batch_fn(s):
+        def make():
+            db = s.sample()
+            return batch_to_rank(db, grid), db.stats
+        return make
+
+    # per-worker DistSamplers with independent RNG streams (§3.3), the same
+    # on every rank
+    samplers = ([sampler] if args.samplers <= 1 else
+                [DistSampler(kg.train, book, rp, cfg, r)
+                 for r in worker_rngs(args.seed, args.samplers)])
 
     def save(ckpt_dir, i, st):
         full = gather_dist_state(prog, grid, st)  # every rank takes part
@@ -383,8 +392,11 @@ def _dist_rank(grid, args, hooks=()):
                                      every=max(1, args.log_every)))
     if args.ckpt_dir:
         own.append(CheckpointHook(args.ckpt_dir, args.save_every, save_fn=save))
-    state = train_loop(step, state, make_batch, args.steps, start=start,
-                       hooks=[*own, *hooks])
+    state = train_loop(step, state, batch_fn(sampler), args.steps, start=start,
+                       hooks=[*own, *hooks], n_trainers=args.trainers,
+                       n_samplers=args.samplers,
+                       sampler_factory=lambda wid: batch_fn(samplers[wid]),
+                       ordered=True)
     final = gather_dist_state(prog, grid, state)
     say("done")
     return cfg, final

@@ -7,19 +7,28 @@ body returns rank 0's result; results of other ranks reach rank 0 through
 an all_gather.
 """
 
+import contextlib
+import dataclasses
+import hashlib
+
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import distributed as D
 from repro_torch.core.distributed import (
     batch_to_rank,
     build_dist_train_step,
     build_pipelined_dist_step,
     dist_state_from_arrays,
     gather_dist_state,
+    init_dist_state,
     run_batches,
 )
+from repro_torch.core.sampling import DistBatch
 from repro_torch.embeddings.kvstore import KVStoreSpec, pull_remote, push_remote_grads
 from repro_torch.embeddings.store import ReplicatedStore
+from repro_torch.launch import engine, train
 
 
 def run_cases(grid, cases):
@@ -101,3 +110,94 @@ def pipeline_cases(grid, cases, trace=None, eager=None):
                                lookahead=False)
                 for build in (build_dist_train_step, build_pipelined_dist_step)]
     return runs, traced, both
+
+
+# ---------------------------------------------------------------------------
+# the distributed CLI with several trainers and samplers
+# ---------------------------------------------------------------------------
+def batch_digest(db) -> str:
+    """A digest of every field of a whole ``DistBatch``."""
+    h = hashlib.sha1()
+    for f in dataclasses.fields(db):
+        v = getattr(db, f.name)
+        h.update(np.ascontiguousarray(v).tobytes() if isinstance(v, np.ndarray)
+                 else repr(v).encode())
+    return h.hexdigest()
+
+
+class StepRecorder(engine.Hook):
+    """Each step this rank runs, in hook order: (step number, the digest of
+    its whole batch, the trainer that stepped it); and its metrics."""
+
+    def __init__(self):
+        self.steps, self.metrics = [], []
+
+    def on_step(self, i, state, metrics, stats):
+        self.steps.append((i, stats["digest"], stats.get("trainer")))
+        self.metrics.append({k: float(v) for k, v in metrics.items()})
+
+
+@contextlib.contextmanager
+def _digests_in_stats():
+    """``DistBatch.stats`` also carries ``batch_digest`` of the batch."""
+    plain = DistBatch.stats
+    DistBatch.stats = property(lambda db: {**plain.fget(db), "digest": batch_digest(db)})
+    try:
+        yield
+    finally:
+        DistBatch.stats = plain
+
+
+@contextlib.contextmanager
+def _recorded_gathers(log):
+    """Every ``gather_dist_state`` call appends the step of its state."""
+    plain = D.gather_dist_state
+
+    def gather(prog, grid, state):
+        log.append(int(state["step"]))
+        return plain(prog, grid, state)
+
+    D.gather_dist_state = gather
+    try:
+        yield
+    finally:
+        D.gather_dist_state = plain
+
+
+def cli_runs(grid, argvs):
+    """The train CLI's rank body (``train._dist_rank``) for each argv, one
+    after the other in this world, with a ``StepRecorder`` on every rank.
+    Rank 0 returns, per argv, (cfg, the final global state, rank 0's step
+    metrics, every rank's record): a record is the rank's steps and the
+    step of each gather it took part in (checkpoint saves, the final one)."""
+    out = []
+    for argv in argvs:
+        rec, gathers = StepRecorder(), []
+        with _digests_in_stats(), _recorded_gathers(gathers):
+            cfg, final = train._dist_rank(grid, train.build_parser().parse_args(argv),
+                                          hooks=(rec,))
+        records = [None] * grid.world
+        dist.all_gather_object(records, (rec.steps, gathers))
+        out.append((cfg, final, rec.metrics, records))
+        dist.barrier()  # rank 0's checkpoints are on disk for the next run
+    return out
+
+
+def failing_sampler_run(grid, prog, batches, fail_at):
+    """Two trainers and two samplers in the ordered mode over ``batches``;
+    rank 1's sampler 1 raises instead of making its ``fail_at``-th batch."""
+    made = [0, 0]
+
+    def factory(wid):
+        def make():
+            made[wid] += 1
+            if grid.rank == 1 and wid == 1 and made[wid] == fail_at:
+                raise RuntimeError("sampler failed on purpose")
+            return batch_to_rank(batches[(2 * (made[wid] - 1) + wid) % len(batches)],
+                                 grid), None
+        return make
+
+    step = build_dist_train_step(prog, grid)
+    engine.train_loop(step, init_dist_state(prog, grid, 0), None, len(batches),
+                      n_trainers=2, n_samplers=2, sampler_factory=factory,
+                      ordered=True)

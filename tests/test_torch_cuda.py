@@ -972,3 +972,34 @@ def test_dist_world_of_one_matches_cpu(cuda, model, kernels):
         diff = np.abs(got[name] - want[name])
         assert (diff > 1e-5 + 1e-5 * np.abs(want[name])).mean() <= 1e-3, name
         assert diff.max() <= 2 * prog.cfg.lr * len(batches), name
+
+
+def test_dist_world_of_one_with_two_trainers_matches_cpu(cuda):
+    """``--distributed --mesh 1x1 --trainers 2 --samplers 2`` through the CLI
+    on the card (one NCCL rank; trainer and sampler threads on its stream)
+    and on the CPU (gloo), six TransE_l2 steps on one batch order: exactly
+    two pairwise_l2sq launches a step, the losses within 1e-5 and the tables
+    under the Adagrad-flip rule."""
+    from repro_torch.launch import engine, train
+
+    def cli(device):
+        hook = engine.MetricsHook(("loss",))
+        cfg, final = train.main(
+            ["--device", device, "--distributed", "--mesh", "1x1", "--trainers", "2",
+             "--samplers", "2", "--steps", "6", "--scale", "0.05", "--dim", "64",
+             "--batch-size", "64", "--neg", "32", "--log-every", "3"], hooks=[hook])
+        return cfg, final, hook.history["loss"]
+
+    build.reset_launches()
+    cfg, got, l_dev = cli("cuda")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    _, want, l_cpu = cli("cpu")
+    assert launches["pairwise_l2sq"] == 12 and launches["fused_update"] >= 12
+    np.testing.assert_allclose(l_dev, l_cpu, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got["pend_ids"], want["pend_ids"])
+    assert got["step"] == want["step"] == 6
+    for name in ("entity", "ent_gsq", "r_emb", "rel_gsq", "pend_grads"):
+        diff = np.abs(got[name] - want[name])
+        assert (diff > 1e-5 + 1e-5 * np.abs(want[name])).mean() <= 1e-3, name
+        assert diff.max() <= 2 * cfg.lr * 6, name

@@ -5,6 +5,7 @@ the port's divergence: a dying sampler re-raises in the consumer.
 
 Every queue wait and join is bounded by a timeout."""
 
+import queue
 import threading
 import time
 import warnings
@@ -282,3 +283,115 @@ def test_dying_sampler_reraises_in_the_consumer():
     pf.thread.join(timeout=WAIT_S)
     assert not pf.thread.is_alive()  # the worker exited after handing it over
     pf.close()
+
+
+# ---------------------------------------------------------------------------
+# the ordered mode (the distributed path's several samplers)
+# ---------------------------------------------------------------------------
+def _counting_factory(delays=None):
+    """Worker w yields (w, 0), (w, 1), ...; ``delays[w]`` s before each."""
+    def factory(wid):
+        counter = iter(range(10_000))
+
+        def sample():
+            if delays:
+                time.sleep(delays[wid])
+            return wid, next(counter)
+        return sample
+    return factory
+
+
+def test_ordered_pool_hands_out_round_robin():
+    """Batch t is worker t mod N's next one, numbered t, whichever worker
+    is faster."""
+    pool = WorkerPool(_counting_factory([0.0, 0.02, 0.0]), n_workers=3, depth=3,
+                      ordered=True)
+    got = [pool.get_numbered(timeout=WAIT_S) for _ in range(12)]
+    more = [pool.get(timeout=WAIT_S) for _ in range(3)]
+    pool.close()
+    assert got == [(t, (t % 3, t // 3)) for t in range(12)]
+    assert more == [(0, 4), (1, 4), (2, 4)]
+    assert not any(t.is_alive() for t in pool.threads)
+
+
+def test_ordered_pool_one_full_queue_does_not_deadlock():
+    """Worker 0 is fast and fills its own queue while the consumer waits
+    on slow worker 1: the round-robin goes on, nothing is dropped or
+    reordered, and the fast worker waits for room (producer wait)."""
+    pool = WorkerPool(_counting_factory([0.0, 0.05]), n_workers=2, depth=2,
+                      ordered=True)
+    time.sleep(0.2)  # worker 0's queue (one batch) is full, it blocks in put
+    assert pool.queues[0].full()
+    got = [pool.get(timeout=WAIT_S) for _ in range(8)]
+    stats = pool.stats()
+    pool.close()
+    assert got == [(t % 2, t // 2) for t in range(8)]
+    assert stats["producer_wait_s"] > 0.05 and stats["consumer_wait_s"] > 0.0
+
+
+def test_ordered_pool_timeout_hands_out_nothing():
+    """A get that times out on the worker whose turn it is consumes no
+    sequence number: the next get returns that worker's batch, numbered
+    as the one that timed out would have been."""
+    release = threading.Event()
+
+    def factory(wid):
+        def sample():
+            if wid == 1:
+                release.wait(WAIT_S)
+            return wid
+        return sample
+
+    pool = WorkerPool(factory, n_workers=2, depth=2, ordered=True)
+    assert pool.get_numbered(timeout=WAIT_S) == (0, 0)
+    with pytest.raises(queue.Empty):
+        pool.get_numbered(timeout=0.05)
+    release.set()
+    assert pool.get_numbered(timeout=WAIT_S) == (1, 1)
+    assert pool.get_numbered(timeout=WAIT_S) == (2, 0)
+    pool.close()
+
+
+def test_ordered_pool_close_joins_blocked_workers():
+    """Every worker blocked in put on its full queue exits on close()."""
+    pool = WorkerPool(lambda wid: (lambda: wid), n_workers=4, depth=4, ordered=True)
+    time.sleep(0.2)
+    assert all(q.full() for q in pool.queues) and pool.qsize() == 4
+    t0 = time.monotonic()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # a shutdown warning = failure
+        pool.close()
+    assert time.monotonic() - t0 < 2.0
+    assert not any(t.is_alive() for t in pool.threads)
+
+
+def test_ordered_pool_reraises_a_sampler_failure_in_turn():
+    """Worker 1 fails at its second batch: the consumer gets batches 0-2
+    in order, then the failure at batch 3 (worker 1's turn), and every
+    later get raises too."""
+    def factory(wid):
+        counter = iter(range(1 if wid == 1 else 10_000))
+        return lambda: (wid, next(counter))
+
+    pool = WorkerPool(factory, n_workers=2, depth=4, ordered=True)
+    got = [pool.get(timeout=WAIT_S) for _ in range(3)]
+    assert got == [(0, 0), (1, 0), (0, 1)]
+    with pytest.raises(RuntimeError, match="sampler thread failed") as err:
+        pool.get(timeout=WAIT_S)
+    assert isinstance(err.value.__cause__, StopIteration)
+    with pytest.raises(RuntimeError, match="sampler thread failed"):
+        pool.get(timeout=WAIT_S)
+    pool.close()
+    assert not any(t.is_alive() for t in pool.threads)
+
+
+def test_free_pool_numbers_batches_in_arrival_order():
+    """The default pool keeps one shared queue; get_numbered counts the
+    batches handed out, peeked ones included once."""
+    pool = WorkerPool(_counting_factory(), n_workers=2, depth=2)
+    assert len(pool.queues) == 1
+    assert pool.get_numbered(timeout=WAIT_S)[0] == 0
+    peeked = pool.peek(timeout=WAIT_S)
+    assert pool.get_numbered(timeout=WAIT_S) == (1, peeked)
+    assert pool.get_numbered(timeout=WAIT_S)[0] == 2
+    pool.close()

@@ -196,6 +196,65 @@ def test_hooks_hold_the_slot_lock_against_applies():
     assert out == 40 and len(overlaps) == 40 and not any(overlaps)
 
 
+def test_ordered_steps_run_in_batch_order_with_their_hooks():
+    """Ordered mode, 3 trainers and 3 samplers: step t takes sampler
+    ``t mod 3``'s next batch, steps apply in that order (each step sees
+    the state of all earlier ones), and hook i sees batch i - 1 - start,
+    whatever thread stepped it. The interpreter switches threads often."""
+    seen, applied = [], []
+
+    def factory(wid):
+        counter = iter(range(10_000))
+        return lambda: ((wid, next(counter)), None)
+
+    def step(state, batch):
+        applied.append((state, batch))
+        return state + 1, {"loss": 0.0}
+
+    class Recorder(Hook):
+        def on_step(self, i, state, metrics, stats):
+            seen.append((i, state, stats["trainer"]))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        out = bounded(hogwild_train_loop, step, 4, None, 40, start=4,
+                      hooks=[Recorder()], n_trainers=3, n_samplers=3,
+                      sampler_factory=factory, ordered=True)
+    finally:
+        sys.setswitchinterval(interval)
+    batches = [(t % 3, t // 3) for t in range(36)]
+    assert out == 40
+    assert applied == [(4 + t, b) for t, b in enumerate(batches)]
+    assert [(i, s) for i, s, _ in seen] == [(5 + t, 5 + t) for t in range(36)]
+    assert seen[0][2] == 0 and {tr for _, _, tr in seen} <= {0, 1, 2}
+
+
+def test_ordered_failed_step_stops_the_waiting_trainers():
+    """A step that raises in ordered mode re-raises in the caller; the
+    trainers holding later batches stop at the turnstile, and no later
+    step runs."""
+    ran = []
+
+    def step(state, batch):
+        if batch == 5:
+            raise RuntimeError("boom")
+        ran.append(batch)
+        return state + 1, {}
+
+    counter = iter(range(10_000))
+    with pytest.raises(RuntimeError, match="boom"):
+        bounded(hogwild_train_loop, step, 0, lambda: (next(counter), None), 50,
+                n_trainers=4, ordered=True)
+    assert ran == [0, 1, 2, 3, 4]
+
+
+def test_ordered_mode_refuses_a_split_step():
+    with pytest.raises(ValueError, match="whole-step swap"):
+        hogwild_train_loop(_count_step, 0, _batches, 5, n_trainers=2, ordered=True,
+                           split_step=(lambda s, b: (1, {}), lambda s, b, g: s))
+
+
 def test_launch_counter_loses_no_update_under_contention():
     """``build.count`` from more threads than cores, switching often: the
     total is exact (a bare ``+= 1`` can lose increments here)."""

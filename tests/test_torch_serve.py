@@ -3,6 +3,7 @@ ThroughputHook) against the JAX package's serve loop on the reduced
 Qwen1.5-0.5B and Mamba2-2.7B in their config dtype, from JAX's weights."""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -131,9 +132,38 @@ def test_serve_main_on_danube(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--metrics-out", "--trace-out"])
-def test_serve_refuses_unported_flags(flag):
-    with pytest.raises(NotImplementedError, match="Queue A9"):
-        serve.main(["--device", "cpu", flag, "x.json"])
+def test_serve_refuses_unported_flags(flag, tmp_path, monkeypatch, capsys):
+    """Once refused (the telemetry files were not ported), each flag now
+    writes its file as JAX's serve does: a TelemetryHook every 16 steps
+    after the ThroughputHook. The file passes both packages' validators,
+    and a metrics file holds as many snapshots as JAX's serve writes at the
+    same --prompt-len/--gen; the registry is restored after the run."""
+    from repro.common import telemetry as jax_telemetry
+    from repro.launch import serve as jax_serve
+    from repro_torch.common import telemetry
+
+    args = ["--arch", "qwen1.5-0.5b", "--batch", "2", "--prompt-len", "12",
+            "--gen", "8"]
+    path = tmp_path / ("m.jsonl" if flag == "--metrics-out" else "t.json")
+    serve.main(["--device", "cpu", *args, flag, str(path)])
+    assert not telemetry.get_registry().enabled
+    if flag == "--trace-out":
+        for mod in (telemetry, jax_telemetry):
+            assert mod.validate_trace(str(path)) > 0
+        return
+    n = [mod.validate_metrics_jsonl(str(path), require=("engine/steps",))
+         for mod in (telemetry, jax_telemetry)]
+    last = json.loads(path.read_text().splitlines()[-1])
+    assert last["step"] == 20 and last["counters"]["engine/steps"] == 20
+    jax_path = tmp_path / "jax_m.jsonl"
+    monkeypatch.setattr(sys, "argv", ["serve", *args, flag, str(jax_path)])
+    prev = jax_telemetry.get_registry()
+    try:
+        jax_serve.main()
+    finally:
+        jax_telemetry.set_registry(prev)  # JAX's serve enables it for good
+    assert n == [jax_telemetry.validate_metrics_jsonl(str(jax_path))] * 2 == [2, 2]
+    capsys.readouterr()
 
 
 def test_serve_defaults_to_cuda(monkeypatch):

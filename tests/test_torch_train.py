@@ -186,10 +186,10 @@ def test_cli_trains_rescal_and_leaves_its_relation_rows():
 
 
 def test_cli_refuses_unported_modes():
-    """--trainers/--samplers with --distributed stay refused naming A7.4;
-    the pipelined flags are refused where JAX refuses them: without
+    """The pipelined flags are refused where JAX refuses them: without
     --distributed (an argparse error, exit 2) and with more than one
-    trainer or sampler (JAX's SystemExit)."""
+    trainer or sampler (JAX's SystemExit). --trainers/--samplers with
+    --distributed, refused until the ordered runtime ported them, train."""
     from repro_torch.launch import train
 
     for flags in (["--push-every", "2"], ["--pipeline-depth", "1"]):
@@ -199,10 +199,11 @@ def test_cli_refuses_unported_modes():
     with pytest.raises(SystemExit, match="incompatible with --trainers/--samplers"):
         train.main(["--device", "cpu", "--distributed", "--push-every", "2",
                     "--samplers", "2"])
-    for flags, item in ((["--distributed", "--trainers", "2"], "A7.4"),
-                        (["--distributed", "--samplers", "2"], "A7.4")):
-        with pytest.raises(NotImplementedError, match=item):
-            train.main(["--device", "cpu", *flags])
+    for flags in (["--trainers", "2"], ["--samplers", "2"]):
+        cfg, final = train.main(["--device", "cpu", "--distributed", "--mesh", "1x1",
+                                 "--steps", "3", "--scale", "0.02", "--dim", "16",
+                                 "--batch-size", "32", "--neg", "8", *flags])
+        assert final["step"] == 3 and np.isfinite(final["entity"]).all()
     # the port's kernels are chosen by the tensors' device: --use-kernel
     # trains on cuda and is refused on the CPU, where nothing launches them
     with pytest.raises(ValueError, match="--use-kernel"):
