@@ -16,8 +16,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      H2O-Danube-1.8B's GQA and window, a ragged and a decode-like shape in
      f32 and in bf16, with SDPA's own error beside
      the kernel's; the SSD scan at Mamba2-2.7B's prefill, a long
-     sequence, a ragged T and T = 1, also against the step-by-step
-     ``ssd_ref``; dedup and the update also at phase 13's shapes, the
+     sequence, a ragged T, T = 1 and Jamba-1.5-Large's 1 x 4096 x 256
+     heads, also against the step-by-step ``ssd_ref``; flash also at
+     Mixtral-8x7B's 1 x 32 x 8 x 8192 x 128 in bf16 with its window of
+     4096, DBRX's 1 x 48 x 8 x 4096 x 128 and Jamba's 1 x 64 x 8 x 4096 x
+     128; dedup and the update also at phase 13's shapes, the
      5,632-slot T5 flush and the 1,280-slot relation apply), with its
      time, the plain version's time, one PyTorch
      library call's time as a yardstick where one computes the same
@@ -34,6 +37,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      pairwise product); and (1, 256) prefills of Qwen1.5-0.5B (flash) and
      Mamba2-2.7B (ssd_scan) at full width cut to 2 layers, in f32, on the
      card and on the CPU from the same weights (logits within 2e-3);
+     the reduced Mixtral-8x7B, DBRX and Jamba-1.5-Large in f32, (1, 256)
+     flash prefills on the card and on the CPU, then their MoE layers'
+     capacity-bounded route at factor 0.5 in a 1x1 NCCL world on the card
+     and a 1x1 gloo world on the CPU, under the routing rule below;
   5. TransE_l2 path: ``python -m repro_torch.launch.train --dataset fb15k
      --model transe_l2`` (14,951 x 400 entities, batch 1024, 256 joint
      negatives, T5 deferred update on) for 200 steps; the loss must fall and
@@ -129,6 +136,42 @@ Phases, each fatal on failure (exit code 1, no result line):
      dim-400 steps of TransE_l2 and DistMult through the ordered runtime on
      the card and in a gloo world of one on the CPU, under phase 4's rule;
      step time, device time and idle share beside phase 13's.
+ 16. MoE prefill at full width: Mixtral-8x7B cut to 4 layers on (1, 8192)
+     tokens from numpy seed 0 (its window of 4096 masks), then DBRX cut to
+     4 layers on (1, 4096), weights drawn on the card from seed 0, in bf16
+     through ``build_prefill_step(model, use_flash=True)``: exactly one
+     flash launch per layer a forward, finite logits, the chunked route
+     beside it (flipped tokens by layer); Mixtral also in f32 from the same
+     weights (flash vs chunked: at most 0.1% of tokens flipped, 90% within
+     2e-3 x max(1, max|logit|); each bf16 route's median distance from the
+     f32 logits, the flash route's at most twice the chunked route's); the
+     capacity-bounded route in a 1x1 NCCL world at the config's factor
+     (each layer's dropped share) and at E / k, where nothing drops,
+     against the dense route (Mixtral in f32 under the f32 rule, DBRX in
+     bf16 no farther apart than the two attention routes); forward ms,
+     prefill tokens/s and device time by kernel (flash, GEMMs, the rest)
+     for both routes, and the peak device memory.
+ 17. MoE serve: ``repro_torch.launch.serve.generate`` (the CLI's loop and
+     its ThroughputHook) on the 4-layer Mixtral at batch 4, 32 + 16
+     tokens: finite logits, no kernel launch; in f32 from the same
+     weights, the teacher-forced logits at the prompt positions against the
+     f32 flash prefill, 90% of the tokens within 2e-3 x max(1,
+     max|logit|) (the chunked prefill's distance beside it); decode
+     tokens/s with the card synchronised.
+ 18. Jamba at full width: Jamba-1.5-Large's first 5 layers (four Mamba2,
+     MoE on layers 1 and 3, then attention), in bf16: a (1, 4096) prefill
+     with exactly 4 ssd_scan wrapper calls and 1 flash launch a forward,
+     the chunked route beside it; then ``generate`` at batch 4, 32 + 16:
+     finite logits, no kernel launch, decode tokens/s.
+
+The routing rule, for every comparison that involves MoE layers: a token
+whose top-k expert set differs between the two runs in any MoE layer sits
+at a near-tie (bf16 rounds the router's logits, and equal ones are common)
+and is left out; the share of such tokens is printed, and the logits are
+compared on the others. At full width JAX's init rule makes these models
+chaotic (one-hot attention, saturated routers), so phases 16-18 gate
+shares of tokens and medians, not the largest error (``run_moe_prefill``
+says how); phase 4 and the reduced models keep the plain bounds.
 
 Phase 9 also passes ``--metrics-out`` and ``--trace-out``: a snapshot every
 16 steps and one ``engine/step`` span a step, under the port's validators.
@@ -193,6 +236,9 @@ FLASH_SHAPES = {
     "decode_like_f32": (1, 4, 2, 1, 512, 64, 0, 511, "float32"),
     "ragged_bf16": (2, 4, 2, 100, 100, 64, 0, 0, "bfloat16"),
     "decode_like_bf16": (1, 4, 2, 1, 512, 64, 0, 511, "bfloat16"),
+    "mixtral_prefill_bf16": (1, 32, 8, 8192, 8192, 128, 4096, 0, "bfloat16"),
+    "dbrx_prefill_bf16": (1, 48, 8, 4096, 4096, 128, 0, 0, "bfloat16"),
+    "jamba_prefill_bf16": (1, 64, 8, 4096, 4096, 128, 0, 0, "bfloat16"),
 }
 QWEN = "qwen1.5-0.5b"
 PREFILL_SHAPE = (4, 2048)
@@ -209,7 +255,19 @@ SSD_SHAPES = {
     "long_8192": (1, 8192, 80, 64, 128),
     "ragged_100": (1, 100, 4, 32, 16),
     "t1": (4, 1, 80, 64, 128),
+    "jamba_prefill": (1, 4096, 256, 64, 128),
 }
+MIXTRAL, DBRX, JAMBA = "mixtral-8x7b", "dbrx-132b", "jamba-1.5-large-398b"
+# phases 16-18: full width, cut in depth to fit one card (PERF.md §4): Jamba's
+# first five layers are four Mamba2 ones (MoE on 1 and 3) and its attention
+MOE_CUTS = {MIXTRAL: 4, DBRX: 4, JAMBA: 5}
+MOE_TOKENS = {MIXTRAL: (1, 8192), DBRX: (1, 4096), JAMBA: (1, 4096)}
+MOE_SERVE = (4, 32, 16)  # batch, prompt tokens, generated tokens
+# the routing rule's largest share of tokens whose top-k expert set differs
+ROUTE_TOL_F32 = 1e-3
+# at full width, the share of tokens two f32 runs must keep within 2e-3 x
+# max(1, max|logit|) (the rest move through near-ties; run_moe_prefill)
+AGREE_SHARE = 0.9
 SSD_CHUNK = 64  # the rows of a chunk in ssd_ops' count (the kernel's are 64 too)
 SSD_REF_TOL = 1e-4  # against ssd_ref: JAX's bound (tests/test_kernels.py:94-99)
 
@@ -975,6 +1033,56 @@ def check_lm_agreement(torch, np, dev, arch, counter, use_flash):
           f"bound {ratio:.3f}")
     check(n == cfg.n_layers and got.shape == want.shape and ratio <= 1.0,
           f"{arch} card and CPU logits disagree")
+
+
+def check_moe_agreement(torch, np, dev, arch):
+    """Phase 4's MoE rows: the reduced ``arch`` in f32, a (1, 256) flash
+    prefill on the card (flash attention, and ssd_scan for Jamba's Mamba2
+    layer) and on the CPU (plain versions) from the same weights, then the
+    capacity-bounded route at factor 0.5 in a 1x1 NCCL world on the card
+    and a 1x1 gloo world on the CPU (each layer's dropped share printed;
+    at the configs' 1.25 these reduced models route evenly enough to drop
+    nothing), both under the routing rule (``run_moe_prefill``): at most
+    0.1% of the tokens flipped, the others' logits within 2e-3."""
+    import dataclasses
+
+    from repro_torch.common.config import MixerKind
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.moe import dropped_share
+    from repro_torch.models.transformer import build_model, forward_routes, routing_rule
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1))
+    card = tree_map(lambda t: t.to(dev), params)
+    tok = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 256)))
+    n_attn = sum(k[0] == MixerKind.ATTN for k in model.kinds)
+    build.reset_launches()
+    got, got_sets = forward_routes(model, card, {"tokens": tok.to(dev)}, use_flash=True)
+    _sync(torch, dev)
+    n = (build.LAUNCHES["flash_attention"], build.LAUNCHES["ssd_scan"])
+    want, want_sets = forward_routes(model, params, {"tokens": tok}, use_flash=True)
+    a = routing_rule(got, want, got_sets, want_sets)
+    rcfg = dataclasses.replace(cfg, capacity_factor=0.5)
+    r_got, r_got_sets, _ = run_world(1, 1, moe_world_body,
+                                     (rcfg, card, {"tokens": tok.to(dev)}, True),
+                                     device=dev.type)
+    r_want, r_want_sets, _ = run_world(1, 1, moe_world_body,
+                                       (rcfg, params, {"tokens": tok}, True))
+    r = routing_rule(r_got, r_want, r_got_sets, r_want_sets)
+    drops = [dropped_share(s, rcfg) for s in r_want_sets]
+    print(f"  {arch} reduced f32 prefill (1, 256): {n[0]} flash, {n[1]} ssd_scan "
+          f"launches; card vs CPU {a['flipped']:.3%} of tokens flipped, logits "
+          f"max_abs_err {a['max_other']:.3e} on the others; routed at factor 0.5 "
+          f"(dropped by layer {[f'{d:.1%}' for d in drops]}): NCCL card vs gloo CPU "
+          f"{r['flipped']:.3%} flipped, {r['max_other']:.3e}")
+    check(n == (n_attn, cfg.n_layers - n_attn) and min(drops) > 0
+          and max(a["flipped"], r["flipped"]) <= ROUTE_TOL_F32
+          and max(a["max_other"], r["max_other"]) <= LM_TOL,
+          f"{arch}: card and CPU MoE prefills disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -2282,6 +2390,365 @@ def run_dist_hogwild(torch, np, dev, eager, eager_launches):
     return {"hogwild_dist_transe_l2": launches}, summary
 
 
+# ---------------------------------------------------------------------------
+# phases 16-18: the MoE layer at full width (Mixtral-8x7B, DBRX, Jamba)
+# ---------------------------------------------------------------------------
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def moe_world_body(grid, cfg, params, inputs, use_flash, reps=0):
+    """In a world of one rank: the forward of ``cfg`` with the grid, so
+    that every MoE layer takes the capacity-bounded route over the grid's
+    model group. Returns (logits, expert choices of each MoE layer, timing
+    of ``reps`` more forwards through the prefill step, or None)."""
+    import torch
+
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model, forward_routes
+
+    model = build_model(cfg, grid=grid)
+    logits, sets = forward_routes(model, params, inputs, use_flash=use_flash)
+    timed = None
+    if reps:
+        prefill = build_prefill_step(model, use_flash=use_flash)
+        timed = time_prefill(torch, grid.device, lambda: prefill(params, inputs), reps)
+    return logits, sets, timed
+
+
+def time_prefill(torch, dev, fn, reps):
+    """(forward ms on the host clock around ``reps`` synchronised calls
+    after one warm-up, device ms of one traced call, {flash, ssd_scan,
+    gemm, other: device ms}, the top kernels)."""
+    fn()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(torch, dev)
+    fwd_ms = (time.perf_counter() - t0) / reps * 1e3
+    kern = trace_by_kernel(torch, fn)
+    dev_ms = sum(kern.values()) / 1e3
+    groups = {"flash": ("flash_kernel",), "ssd_scan": ("ssd_kernel",),
+              "gemm": ("nvjet", "gemm", "cutlass")}  # cuBLAS's kernels
+    split = {g: sum(us for key, us in kern.items() if any(w in key for w in words)) / 1e3
+             for g, words in groups.items()}
+    split["other"] = dev_ms - sum(split.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    return fwd_ms, dev_ms, split, top
+
+
+def _print_timed(label, tokens, timed):
+    fwd_ms, dev_ms, split, top = timed
+    print(f"  {label}: forward {fwd_ms:.2f} ms ({tokens / fwd_ms * 1e3:.0f} tokens/s); "
+          f"device {dev_ms:.2f} ms: " + ", ".join(
+              f"{g} {ms:.2f} ms ({ms / dev_ms:.1%})" for g, ms in split.items()))
+    for key, us in top:
+        print(f"    {us / 1e3:9.3f} ms  {key[:100]}")
+    return dict(forward_ms=fwd_ms, prefill_tokens_per_s=tokens / fwd_ms * 1e3,
+                device_ms=dev_ms, device_busy=dev_ms / fwd_ms,
+                **{f"{g}_ms": ms for g, ms in split.items()},
+                **{f"{g}_share": ms / dev_ms for g, ms in split.items()})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def moe_model(torch, dev, arch):
+    """``arch`` at full width cut to MOE_CUTS[arch] layers (stacked, as the
+    config's ``scan_layers`` stacks them), its weights drawn on the card by
+    a generator there, seeded 0, and cast once. The full configs stack
+    every layer's norms and biases into 2-D tensors, which ``cast`` turns
+    to the config's dtype with the matrices, so they compute in it; a cut
+    whose pattern does not repeat (Jamba's five layers) stays unstacked,
+    and its 1-D f32 parameters would promote every activation to f32
+    (JAX's promotion), so there they are cast too, as the full config's
+    are. Returns (model, the drawn weights, the cast ones, init seconds)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=MOE_CUTS[arch])
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    cast = model.cast(params)
+    if model.n_groups == 1:
+        cast = tree_map(lambda a: a.to(model.dtype) if a.dtype == torch.float32 else a,
+                        cast)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"  {cfg.name} cut to {cfg.n_layers} of {get_arch(arch).n_layers} layers "
+          f"({[f'{k[0].value}/{k[1].value}' for k in model.kinds]}): d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} (kv {cfg.n_kv_heads}), "
+          f"{cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.d_ff}, window "
+          f"{cfg.window if cfg.attention.value == 'swa' else 0}, vocab {cfg.vocab_size}; "
+          f"{n / 1e9:.2f} B parameters, param_dtype {cfg.param_dtype}, dtype "
+          f"{cfg.dtype}; drawn on the card and cast in {init_s:.1f} s")
+    return model, params, cast, init_s
+
+
+def _peak_gb(torch, dev):
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+
+
+def _json_safe(a):
+    """``a`` with every infinite float as None (the result lines are JSON)."""
+    return {k: (None if isinstance(v, float) and not math.isfinite(v) else v)
+            for k, v in a.items()}
+
+
+def _print_agreement(label, a):
+    print(f"  {label}: {a['flipped']:.4%} of tokens flipped; per-token max |diff| "
+          f"median {a['median']:.3e}, 90% {a['q90']:.3e}, largest unflipped "
+          f"{a['max_other']:.3e}; {a['within']:.2%} of tokens within 2e-3 x max(1, "
+          f"max|logit|) = {a['bound']:.3e}")
+
+
+def run_moe_prefill(torch, np, dev, arch, f32_yardstick, reps=3):
+    """Phase 16 (Mixtral, DBRX) and phase 18's prefill (Jamba): the cut model
+    in its config dtype through ``build_prefill_step(model, use_flash=True)``
+    on MOE_TOKENS[arch] tokens from numpy seed 0 (the dense MoE route, JAX's
+    route with no mesh): launches, finite logits; the chunked route beside
+    it; with ``f32_yardstick`` (Mixtral) also the f32 flash and chunked
+    forwards from the same weights; then, but for Jamba, the
+    capacity-bounded route in a 1x1 world on the card at the config's
+    capacity factor (each layer's dropped share, timed) and at E / k, where
+    nothing drops, against the dense route (in f32 with the yardstick, else
+    in bf16).
+
+    Every comparison follows the routing rule (``routing_rule``): tokens
+    whose top-k expert set differs between the two runs are counted and
+    left out. At full width JAX's init rule makes the model chaotic
+    (attention scores of std ~1000, so one-hot attention; router logits of
+    std ~32; expert outputs ~1e4): a near-tie that rounding decides moves a
+    token wholly, and later tokens through attention. So the gates read the
+    tokens, not the largest error: two f32 runs must flip at most 0.1% of
+    the tokens and keep 90% of them within 2e-3 x max(1, max|logit|); in
+    bf16, where 24-42% of the tokens flip between two routes (printed, by
+    layer), the flash route's median per-token distance from the f32
+    logits is held to twice the chunked route's (phase 8's rule, on the
+    median), and with no f32 copy (DBRX) the routed route with nothing to
+    drop to the dense one no farther apart, at the median, than the two
+    attention routes. Returns (launches, summary)."""
+    import dataclasses
+
+    from repro_torch.common.config import FFNKind, MixerKind
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models.moe import capacity, dropped_share, flipped
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model, forward_routes, routing_rule
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model, params, cast, init_s = moe_model(torch, dev, arch)
+    cfg = model.cfg
+    B, T = MOE_TOKENS[arch]
+    tok = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T)),
+                          device=dev)
+    inputs = {"tokens": tok}
+    n_attn = sum(k[0] == MixerKind.ATTN for k in model.kinds)
+    n_mamba = cfg.n_layers - n_attn
+    n_moe = sum(k[1] == FFNKind.MOE for k in model.kinds)
+    summary = dict(layers=cfg.n_layers, params=sum(t.numel() for t in _leaves(params)),
+                   tokens=(B, T), init_s=init_s)
+
+    def agree(label, key, *args):
+        a = routing_rule(*args, tol=LM_TOL)
+        _print_agreement(label, a)
+        summary[key] = _json_safe(a)
+        return a
+
+    truth = None
+    if f32_yardstick:
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        build.reset_launches()
+        truth, t_sets = forward_routes(model32, params, inputs, use_flash=True)
+        _sync(torch, dev)
+        n32 = build.LAUNCHES["flash_attention"]
+        print(f"  f32: {n32} flash launches, logits finite: "
+              f"{bool(torch.isfinite(truth).all())}")
+        chunked32, c_sets = forward_routes(model32, params, inputs, use_flash=False)
+        a = agree("f32 flash vs chunked route", "f32_flash_vs_chunked", truth, chunked32,
+                  t_sets, c_sets)
+        del chunked32
+        check(n32 == n_attn and bool(torch.isfinite(truth).all())
+              and a["flipped"] <= ROUTE_TOL_F32 and a["within"] >= AGREE_SHARE,
+              f"{arch}: f32 flash and chunked prefill disagree")
+        rcfg = dataclasses.replace(cfg, dtype="float32",
+                                   capacity_factor=cfg.n_experts / cfg.moe_top_k)
+        check(capacity(rcfg, B * T) > B * T, "capacity E/k leaves cap <= T")
+        routed, r_sets, _ = run_world(1, 1, moe_world_body, (rcfg, params, inputs, True),
+                                      device=dev.type)
+        a = agree(f"f32 routed at capacity factor {rcfg.capacity_factor:g} (cap "
+                  f"{capacity(rcfg, B * T)} > T {B * T}) vs dense", "f32_routed_vs_dense",
+                  routed, truth, r_sets, t_sets)
+        del routed
+        check(a["flipped"] <= ROUTE_TOL_F32 and a["within"] >= AGREE_SHARE,
+              f"{arch}: f32 routed (no drops) and dense prefill disagree")
+
+    # the main path: the config's dtype, the dense route
+    prefill = build_prefill_step(model, use_flash=True)
+    build.reset_launches()
+    logits = prefill(cast, inputs)
+    _sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    print(f"  prefill {(B, T)}: logits {tuple(logits.shape)} {logits.dtype}, "
+          f"{launches['flash_attention']} flash launches, {launches['ssd_scan']} ssd_scan "
+          f"wrapper calls ({n_attn} attention, {n_mamba} Mamba2, {n_moe} MoE layers)")
+    check(launches["flash_attention"] == n_attn and launches["ssd_scan"] == n_mamba
+          and sum(launches.values()) == n_attn + n_mamba,
+          f"{arch}: launches {launches} in one forward, not {n_attn} flash and "
+          f"{n_mamba} ssd_scan")
+    check(tuple(logits.shape) == (B, T, model.padded_vocab)
+          and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+          f"{arch}: prefill logits not finite bf16 of the padded vocab")
+    walked, sets = forward_routes(model, cast, inputs, use_flash=True)
+    same = bool(torch.equal(walked, logits))
+    del walked
+    print(f"  the walked forward (forward_routes) equals the prefill step's bit for "
+          f"bit: {same}")
+    chunked, c_sets = forward_routes(model, cast, inputs, use_flash=False)
+    fc = agree(f"{cfg.dtype} flash vs chunked route", "flash_vs_chunked", logits, chunked,
+               sets, c_sets)
+    print("    flipped by layer (cumulative): " + ", ".join(
+        f"{float(flipped(sets[:i + 1], c_sets[:i + 1], (B, T)).float().mean()):.2%}"
+        for i in range(len(sets))))
+    summary["walked_equals_prefill"] = same
+    if truth is not None:
+        af = agree("  its flash route vs the f32 logits", "flash_from_f32", logits, truth,
+                   sets, t_sets)
+        ac = agree("  its chunked route vs the f32 logits", "chunked_from_f32", chunked,
+                   truth, c_sets, t_sets)
+        check(af["median"] <= 2 * ac["median"],
+              f"{arch}: the flash route's median distance from f32 is more than twice "
+              f"the chunked route's")
+        del truth
+    del chunked
+    summary["dense"] = _print_timed("dense route (every expert on every token)", B * T,
+                                    time_prefill(torch, dev, lambda: prefill(cast, inputs),
+                                                 reps))
+
+    if arch != JAMBA:
+        routed, r_sets, timed = run_world(1, 1, moe_world_body,
+                                          (cfg, cast, inputs, True, reps), device=dev.type)
+        drops = [dropped_share(s, cfg) for s in r_sets]
+        print(f"  routed at capacity factor {cfg.capacity_factor:g} (cap "
+              f"{capacity(cfg, B * T)} of T {B * T} a expert): dropped token-choices by "
+              f"layer {[f'{d:.2%}' for d in drops]}")
+        check(bool(torch.isfinite(routed).all()), f"{arch}: routed logits not finite")
+        agree("  vs the dense route", "routed_vs_dense_at_factor", routed, logits, r_sets,
+              sets)
+        del routed
+        summary["routed"] = _print_timed(
+            f"routed at capacity factor {cfg.capacity_factor:g}", B * T, timed)
+        summary["routed"]["dropped_by_layer"] = drops
+        if not f32_yardstick:
+            rcfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+            routed, r_sets, _ = run_world(1, 1, moe_world_body, (rcfg, cast, inputs, True),
+                                          device=dev.type)
+            a = agree(f"{cfg.dtype} routed at capacity factor {rcfg.capacity_factor:g} "
+                      f"(cap {capacity(rcfg, B * T)} > T {B * T}) vs dense",
+                      "routed_vs_dense", routed, logits, r_sets, sets)
+            del routed
+            check(a["median"] <= fc["median"],
+                  f"{arch}: routed (no drops) and dense prefill lie farther apart than "
+                  f"the flash and chunked routes")
+    del logits
+    summary["peak_gb"] = _peak_gb(torch, dev)
+    print(f"  peak device memory {summary['peak_gb']:.1f} GB")
+    return launches, summary
+
+
+def run_moe_serve(torch, np, dev, arch):
+    """Phase 17 (Mixtral) and phase 18's serve (Jamba): the cut model drawn
+    again from seed 0, ``repro_torch.launch.serve.generate`` (the CLI's
+    loop, with its ThroughputHook) at MOE_SERVE: finite logits, no kernel
+    launch (decode is plain PyTorch, as JAX's is jnp; the MoE layers take
+    the dense route, JAX's serve with no mesh). Where the config stores f32
+    weights (Mixtral), the f32 teacher-forced logits at the prompt
+    positions against the f32 flash prefill of the prompt: 90% of the
+    tokens within 2e-3 x max(1, max|logit|), the chunked prefill's
+    distance printed beside it (``run_moe_prefill`` says why not all).
+    Then decode tokens/s with the card synchronised."""
+    import dataclasses
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import ThroughputHook
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model, routing_rule
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model, params, cast, _ = moe_model(torch, dev, arch)
+    cfg = model.cfg
+    B, T, G = MOE_SERVE
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T))
+    lines = []
+    build.reset_launches()
+    gen, logits = serve.generate(model, cast, prompt, G,
+                                 hooks=[ThroughputHook(B, "tok", lines.append)])
+    _sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    rate = re.findall(r"^(\d+) steps in (\S+)s -> (\S+) tok/s$", "\n".join(lines), re.M)
+    print(f"  generate {(B, T, G)}: {lines[0] if lines else 'no throughput line'}")
+    check(len(rate) == 1 and int(rate[0][0]) == T + G, "no throughput line")
+    check(sum(launches.values()) == 0, f"the decode path launched kernels: {launches}")
+    check(gen.shape == (B, G) and len(logits) == T + G
+          and all(bool(torch.isfinite(lg).all()) for lg in logits),
+          f"{arch}: serve did not generate finite ({B}, {G}) tokens")
+    summary = dict(cli_tok_per_s=float(rate[0][2]))
+    if cfg.param_dtype == "float32":
+        model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+        _, logits32 = serve.generate(model32, params, prompt, 0)  # f32 caches
+        decoded = torch.cat(logits32, dim=1)
+        del logits32
+        pt = {"tokens": torch.as_tensor(prompt, device=dev)}
+        build.reset_launches()
+        truth = build_prefill_step(model32, use_flash=True)(params, pt)
+        _sync(torch, dev)
+        n32 = build.LAUNCHES["flash_attention"]
+        a = routing_rule(decoded, truth)
+        _print_agreement(f"f32 teacher-forced decode vs flash prefill ({n32} launches) "
+                         f"of the prompt", a)
+        witness = routing_rule(build_prefill_step(model32)(params, pt), truth)
+        _print_agreement("  the chunked prefill vs the flash prefill, beside it", witness)
+        check(a["within"] >= AGREE_SHARE,
+              f"{arch}: f32 teacher-forced decode and prefill disagree")
+        summary.update(f32_decode_vs_prefill=_json_safe(a),
+                       f32_chunked_vs_flash_prefill=_json_safe(witness))
+        del decoded, truth
+    del params
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    again, _ = serve.generate(model, cast, prompt, G)
+    _sync(torch, dev)
+    loop_s = time.perf_counter() - t0
+    print(f"  synchronised loop of {T + G} steps {loop_s * 1e3:.1f} ms ({loop_s / (T + G) * 1e3:.2f} "
+          f"ms a step, {B * (T + G) / loop_s:.0f} tok/s); the same tokens as the first "
+          f"run's: {bool(np.array_equal(again, gen))}")
+    summary.update(step_ms=loop_s / (T + G) * 1e3, decode_tok_per_s=B * (T + G) / loop_s,
+                   peak_gb=_peak_gb(torch, dev))
+    print(f"  peak device memory {summary['peak_gb']:.1f} GB")
+    return launches, summary
+
+
+def free_card(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2335,7 +2802,7 @@ def main() -> int:
             print(f"  {'':16s} {name:>18s}: {_fmt(o)}")
 
     print("== 4. card vs CPU: three dim-400 steps at batch 256, k 64; 2-layer "
-          "Qwen and Mamba2 prefills")
+          "Qwen and Mamba2 prefills; reduced Mixtral, DBRX and Jamba prefills")
     for model in ("transe_l2", "transe_l1", "distmult"):
         check_agreement(torch, np, dev, model)
     # RESCAL diverges at FB15k's lr 0.25 (loss 1.39 -> 18.1 in three steps)
@@ -2348,6 +2815,8 @@ def main() -> int:
           f"rule ({floor:.2e} off), so it should run there at FB15k's lr")
     check_lm_agreement(torch, np, dev, QWEN, "flash_attention", use_flash=True)
     check_lm_agreement(torch, np, dev, MAMBA, "ssd_scan", use_flash=False)
+    for arch in (MIXTRAL, DBRX, JAMBA):
+        check_moe_agreement(torch, np, dev, arch)
 
     print(f"== 5. TransE_l2 path: FB15k, {MAIN_PATH_STEPS} steps")
     l2_launches, l2_path, *_ = run_path(torch, np, "transe_l2", [], 20)
@@ -2399,11 +2868,35 @@ def main() -> int:
     dh_launches, dh_path = run_dist_hogwild(torch, np, dev, dist_path,
                                             dist_launches["dist_transe_l2"])
 
+    free_card(torch)
+    print(f"== 16. MoE prefill at full width: {MIXTRAL} {MOE_TOKENS[MIXTRAL]} (window "
+          f"4096), then {DBRX} {MOE_TOKENS[DBRX]}, flash, dense and routed")
+    mx_pre_launches, mx_pre_path = run_moe_prefill(torch, np, dev, MIXTRAL, True)
+    free_card(torch)
+    dbrx_pre_launches, dbrx_pre_path = run_moe_prefill(torch, np, dev, DBRX, False)
+    free_card(torch)
+
+    print(f"== 17. MoE serve: repro_torch.launch.serve.generate, {MIXTRAL} cut to "
+          f"{MOE_CUTS[MIXTRAL]} layers, batch {MOE_SERVE[0]}, {MOE_SERVE[1]} + "
+          f"{MOE_SERVE[2]} tokens")
+    mx_serve_launches, mx_serve_path = run_moe_serve(torch, np, dev, MIXTRAL)
+    free_card(torch)
+
+    print(f"== 18. Jamba at full width: {JAMBA} cut to {MOE_CUTS[JAMBA]} layers, "
+          f"prefill {MOE_TOKENS[JAMBA]} (ssd_scan and flash), then generate")
+    jb_pre_launches, jb_pre_path = run_moe_prefill(torch, np, dev, JAMBA, False)
+    free_card(torch)
+    jb_serve_launches, jb_serve_path = run_moe_serve(torch, np, dev, JAMBA)
+    free_card(torch)
+
     launches_of = {"transe_l2": l2_launches, "transe_l1": l1_launches,
                    "distmult": dm_launches, "qwen_prefill": pre_launches,
                    "qwen_serve": serve_launches, "mamba2_prefill": m_pre_launches,
                    "mamba2_serve": m_serve_launches, **hog_launches,
-                   **dist_launches, **pipe_launches, **dh_launches}
+                   **dist_launches, **pipe_launches, **dh_launches,
+                   "mixtral_prefill": mx_pre_launches, "dbrx_prefill": dbrx_pre_launches,
+                   "jamba_prefill": jb_pre_launches, "mixtral_serve": mx_serve_launches,
+                   "jamba_serve": jb_serve_launches}
     kernels = []
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches_of.items()}
@@ -2428,7 +2921,11 @@ def main() -> int:
                                 "mamba2_prefill": m_pre_path,
                                 "mamba2_serve": m_serve_path, "hogwild": hog_path,
                                 "distributed": dist_path, "pipelined": pipe_path,
-                                "dist_hogwild": dh_path}}))
+                                "dist_hogwild": dh_path, "mixtral_prefill": mx_pre_path,
+                                "dbrx_prefill": dbrx_pre_path,
+                                "mixtral_serve": mx_serve_path,
+                                "jamba_prefill": jb_pre_path,
+                                "jamba_serve": jb_serve_path}}))
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,8 +41,8 @@ class ParamDef:
         if self.init == "fan_in":
             std = 1.0 / math.sqrt(self.shape[0])
         x = torch.randn(self.shape, generator=gen, dtype=torch.float32,
-                        device=gen.device) * std
-        return x.to(device=device, dtype=self.dtype)
+                        device=gen.device)
+        return x.mul_(std).to(device=device, dtype=self.dtype)  # one f32 temporary
 
 
 def tree_map(fn, tree):

@@ -1,12 +1,13 @@
 """Architecture assembly of the LM zoo: decoders of attention or Mamba2
-layers with dense FFNs.
+layers with dense or Mixture-of-Experts FFNs.
 
 A port of the JAX package's models/transformer.py for the configs whose
-layers are (attention or Mamba2 mixer, dense FFN or none) with no encoder
-and no frontend: Qwen1.5-0.5B, H2O-Danube-1.8B (SWA), Minitron-4B and
-Mamba2-2.7B (attention-free, no FFN). The layer kinds follow JAX's
-``_pattern`` and the stacking its ``_period``. ``build_model(cfg)``
-returns a ``Model`` exposing
+layers are (attention or Mamba2 mixer, dense FFN, MoE or none) with no
+encoder and no frontend: Qwen1.5-0.5B, H2O-Danube-1.8B (SWA), Minitron-4B,
+Mamba2-2.7B (attention-free, no FFN), Mixtral-8x7B (SWA, MoE), DBRX (MoE)
+and Jamba-1.5-Large (Mamba2 and attention 7:1, MoE every other layer). The
+layer kinds follow JAX's ``_pattern`` and the stacking its ``_period``.
+``build_model(cfg, grid=None)`` returns a ``Model`` exposing
 
     defs / init(gen, device) / cast(params)  parameters (JAX's tree layout)
     forward(params, inputs, use_flash)       logits for prefill
@@ -30,9 +31,15 @@ promotes to f32 at its 1-D biases and norms. ``cast(params)`` does that
 once, so a server holds the cast copy and the cast in ``forward`` finds
 nothing left to do.
 
-MoE (and with it Jamba), MLA, the Whisper encoder-decoder and the LLaVA
-frontend raise ``NotImplementedError`` at ``build_model``, naming their
-ROADMAP item.
+An MoE layer (``models/moe.py``) takes JAX's no-mesh route, every expert
+on every token, unless the model has a ``grid`` (a ``launch/mesh.py``
+``ProcessGrid``, where JAX has its mesh): then it takes the
+capacity-bounded route over the grid's model group, which may drop
+token-choices. A grid of more than one server (``S > 1``: experts across
+ranks) waits for ROADMAP Queue A10.1b. ``forward_routes`` gives the
+logits with each MoE layer's expert choices, which the routing rule
+compares. MLA, the Whisper encoder-decoder and the LLaVA frontend raise
+``NotImplementedError`` at ``build_model``, naming their ROADMAP item.
 ``params_from_arrays`` / ``params_to_arrays`` carry weights between the JAX
 package (nested numpy arrays) and the port.
 """
@@ -58,9 +65,7 @@ Params = Dict[str, Any]
 
 def unported(cfg: ArchConfig) -> Optional[str]:
     """Why ``cfg`` does not run in the port yet, or None."""
-    if cfg.n_experts or cfg.moe_period:
-        what = "MoE layers (mixtral, dbrx, jamba)"
-    elif cfg.mixer_pattern not in ("attn", "mamba"):
+    if cfg.mixer_pattern not in ("attn", "mamba", "jamba"):
         what = f"the {cfg.mixer_pattern} layer pattern"
     elif cfg.attention == AttentionKind.MLA:
         what = "MLA attention (minicpm3)"
@@ -90,15 +95,19 @@ def _period(pat: List[Kind]) -> int:
 
 def _layer_defs(cfg: ArchConfig, kind: Kind) -> Dict[str, Any]:
     """One layer: ln1 and its mixer (``attn`` or ``mamba``), then ``ln2``
-    and the dense ``ffn`` when d_ff > 0 (Mamba2 has none)."""
-    mixer, _ = kind
+    and the ``moe`` of an MoE layer, or the dense ``ffn`` when d_ff > 0
+    (Mamba2 has none)."""
+    mixer, ffn = kind
     d = cfg.d_model
     out: Dict[str, Any] = {"ln1": ParamDef((d,), init="ones")}
     if mixer == MixerKind.ATTN:
         out["attn"] = A.attn_defs(cfg)
     else:
         out["mamba"] = SSM.mamba_defs(cfg)
-    if cfg.d_ff > 0:
+    if ffn == FFNKind.MOE:
+        out["ln2"] = ParamDef((d,), init="ones")
+        out["moe"] = M.moe_defs(cfg)
+    elif cfg.d_ff > 0:
         out["ln2"] = ParamDef((d,), init="ones")
         out["ffn"] = M.ffn_defs(cfg)
     return out
@@ -107,11 +116,14 @@ def _layer_defs(cfg: ArchConfig, kind: Kind) -> Dict[str, Any]:
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
+    grid: Any = None  # a ProcessGrid: the MoE layers' capacity-bounded route
 
     def __post_init__(self):
         why = unported(self.cfg)
         if why:
             raise NotImplementedError(why)
+        if self.grid is not None and self.grid.S > 1:
+            raise NotImplementedError(M.EP_TODO)
         cfg = self.cfg
         self.pattern = _pattern(cfg)
         self.period = _period(self.pattern) if cfg.scan_layers else cfg.n_layers
@@ -160,20 +172,27 @@ class Model:
                 yield pg[f"l{j}"]
 
     # --------------------------------------------------------------- forward
-    def _ffn(self, x, p):
+    def _ffn(self, x, p, kind: Kind):
         cfg = self.cfg
+        if kind[1] == FFNKind.MOE:
+            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+            return x + M.moe_apply(p["moe"], h, cfg, self.grid)
         if cfg.d_ff <= 0:
             return x
         return x + M.ffn_apply(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
 
-    def _apply_layer(self, x, p, kind: Kind, use_flash=False):
+    def _mix(self, x, p, kind: Kind, use_flash=False):
+        """x plus the layer's mixer of it (the FFN's input)."""
         cfg = self.cfg
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         if kind[0] == MixerKind.ATTN:
             h = A.attention_train(p["attn"], h, cfg, causal=True, use_flash=use_flash)
         else:
             h = SSM.mamba_train(p["mamba"], h, cfg)
-        return self._ffn(x + h, p)
+        return x + h
+
+    def _apply_layer(self, x, p, kind: Kind, use_flash=False):
+        return self._ffn(self._mix(x, p, kind, use_flash=use_flash), p, kind)
 
     def _unembed(self, cast, x):
         w = cast["tok_emb"].T if self.cfg.tie_embeddings else cast["unembed"]
@@ -228,13 +247,13 @@ class Model:
                 h, _ = A.attention_decode(p["attn"], h, c, index, cfg)
             else:
                 h, _ = SSM.mamba_decode(p["mamba"], h, c, cfg)
-            x = self._ffn(x + h, p)
+            x = self._ffn(x + h, p, kind)
         x = rmsnorm(x, cast["final_ln"], cfg.norm_eps)
         return self._unembed(cast, x), caches
 
 
-def build_model(cfg: ArchConfig) -> Model:
-    return Model(cfg=cfg)
+def build_model(cfg: ArchConfig, grid=None) -> Model:
+    return Model(cfg=cfg, grid=grid)
 
 
 # ------------------------------------------------------------ weights across
@@ -242,7 +261,8 @@ def params_from_arrays(model: Model, tree, device="cpu") -> Params:
     """The port's parameters from the JAX package's tree of numpy arrays
     (``jax.tree.map(np.asarray, params)``) of the same config: stacked
     under ``layers/l0`` for a config with ``scan_layers``, per layer
-    (``layers/l0 .. l{n-1}``) for a reduced one. Keys and shapes must match
+    (``layers/l0 .. l{n-1}``) for a reduced one, an MoE layer's expert
+    tensors then (L, E, d, ff) and (E, d, ff). Keys and shapes must match
     the model's defs."""
 
     def conv(defs, arrs, path):
@@ -263,3 +283,55 @@ def params_from_arrays(model: Model, tree, device="cpu") -> Params:
 def params_to_arrays(params: Params):
     """The JAX package's layout as nested numpy arrays (f32)."""
     return tree_map(lambda t: t.detach().cpu().float().numpy(), params)
+
+
+# ------------------------------------------------------------ the routing rule
+@torch.no_grad()
+def forward_routes(model: Model, params: Params, inputs: Dict[str, torch.Tensor],
+                   use_flash: bool = False):
+    """``model.forward`` walked layer by layer, with the expert choices of
+    each MoE layer: (logits, [expert ids (B*T, k) per MoE layer]). The
+    choices are ``moe.route``'s on the same input the layer routes, so a
+    comparison of two runs can leave out the tokens whose choices differ
+    (``moe.flipped``)."""
+    cfg = model.cfg
+    cast = model.cast(params)
+    x = model.embed(cast, inputs["tokens"])
+    sets = []
+    for kind, p in zip(model.kinds, model._layers(cast["layers"])):
+        x = model._mix(x, p, kind, use_flash=use_flash)
+        if kind[1] == FFNKind.MOE:
+            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+            sets.append(M.route(p["moe"], h.reshape(-1, cfg.d_model), cfg)[2])
+        x = model._ffn(x, p, kind)
+    x = rmsnorm(x, cast["final_ln"], cfg.norm_eps)
+    return model._unembed(cast, x), sets
+
+
+def routing_rule(got, want, got_sets=None, want_sets=None, tol: float = 2e-3):
+    """Two runs' logits (B, T, V) compared under the routing rule: a token
+    whose top-k expert set differs between the runs in any MoE layer
+    (``got_sets``/``want_sets``, as ``forward_routes`` gives them) sits at a
+    near-tie and is counted as off, not compared. Per token, the largest
+    |got - want| over the vocab, one batch row at a time. Returns {flipped:
+    the share of flipped tokens; within: the share of all tokens unflipped
+    and within ``bound`` = tol x max(1, max|want|); median, q90: quantiles
+    of the per-token errors, a flipped token's counted as infinite;
+    max_other: the largest error of an unflipped token; max_logit}."""
+    import math
+
+    B, T = want.shape[:2]
+    err = torch.cat([(g.float() - w.to(g.device).float()).abs().amax(-1).cpu()
+                     for g, w in zip(got, want)]).reshape(-1)
+    off = (M.flipped(got_sets, want_sets, (B, T)).reshape(-1) if got_sets is not None
+           else torch.zeros(B * T, dtype=torch.bool))
+    top = float(want.float().abs().max())
+    bound = tol * max(1.0, top)
+    ranked = torch.where(off, torch.full_like(err, math.inf), err).double()
+    q50, q90 = (float(v) for v in torch.quantile(
+        ranked, torch.tensor([0.5, 0.9], dtype=torch.float64), interpolation="higher"))
+    return dict(flipped=float(off.float().mean()),
+                within=float(((~off) & (err <= bound)).float().mean()), bound=bound,
+                median=q50, q90=q90,
+                max_other=float(err[~off].max()) if bool((~off).any()) else math.inf,
+                max_logit=top)

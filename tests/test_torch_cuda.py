@@ -695,6 +695,78 @@ def test_flash_prefill_on_card_matches_cpu(cuda, arch):
                                rtol=2e-3, atol=2e-3)
 
 
+MOE_ARCHS = ["mixtral-8x7b", "dbrx-132b", "jamba-1.5-large-398b"]
+
+
+def _moe_prefill(arch):
+    """A reduced MoE config in f32 (Mixtral's window cut to 48 so that it
+    masks at T 96), its weights and tokens."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.transformer import build_model
+
+    cfg = ARCHS[arch].reduced()
+    cfg = dataclasses.replace(cfg, dtype="float32", window=48 if cfg.window else 0)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    tok = torch.tensor(_rng(13).integers(0, cfg.vocab_size, (2, 96)))
+    return cfg, params, tok
+
+
+def _routes_body(grid, cfg, params, tok):
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.transformer import build_model, forward_routes
+
+    dev = grid.device
+    return forward_routes(build_model(cfg, grid=grid), tree_map(lambda t: t.to(dev), params),
+                          {"tokens": tok.to(dev)}, use_flash=True)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_on_card_matches_cpu(cuda, arch):
+    """A reduced MoE model's flash prefill on the card (flash and, for Jamba,
+    ssd_scan launches) against the CPU's plain versions from the same
+    weights, in f32, under the routing rule: at most 0.1% of the tokens may
+    choose other experts, the others' logits within 2e-3."""
+    from repro_torch.common.config import MixerKind
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.transformer import build_model, forward_routes, routing_rule
+
+    cfg, params, tok = _moe_prefill(arch)
+    model = build_model(cfg)
+    n_attn = sum(k[0] == MixerKind.ATTN for k in model.kinds)
+    build.reset_launches()
+    got, got_sets = forward_routes(model, tree_map(lambda t: t.to(cuda), params),
+                                   {"tokens": tok.to(cuda)}, use_flash=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == n_attn
+    assert build.LAUNCHES["ssd_scan"] == cfg.n_layers - n_attn
+    want, want_sets = forward_routes(model, params, {"tokens": tok}, use_flash=True)
+    a = routing_rule(got, want, got_sets, want_sets)
+    assert a["flipped"] <= 1e-3 and a["max_other"] <= 2e-3
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_routed_prefill_in_nccl_world_matches_cpu(cuda, arch):
+    """The capacity-bounded route (factor 0.5, so that token-choices drop)
+    in a 1x1 NCCL world on the card against a 1x1 gloo world on the CPU,
+    under the routing rule, within 2e-3."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models.moe import dropped_share
+    from repro_torch.models.transformer import routing_rule
+
+    cfg, params, tok = _moe_prefill(arch)
+    cfg = dataclasses.replace(cfg, capacity_factor=0.5)
+    got, got_sets = run_world(1, 1, _routes_body, (cfg, params, tok), device="cuda",
+                              timeout_s=120)
+    want, want_sets = run_world(1, 1, _routes_body, (cfg, params, tok), timeout_s=120)
+    assert min(dropped_share(s, cfg) for s in want_sets) > 0
+    a = routing_rule(got, want, got_sets, want_sets)
+    assert a["flipped"] <= 1e-3 and a["max_other"] <= 2e-3
+
+
 def _ssd_inputs(shape, cuda, seed, dt_max=0.15, a_max=2.0):
     """x, dt, A, B, C of JAX's sweep (tests/test_kernels.py:86-92): dt in
     [0.05, dt_max], A in [-a_max, -1]."""

@@ -1,6 +1,8 @@
 """The port's LM-zoo modules (models/*) against the JAX package's, on the
-reduced Qwen1.5-0.5B (MHA, QKV bias), H2O-Danube-1.8B (GQA, SWA) and
-Mamba2-2.7B (SSD mixer, no FFN) in f32,
+reduced Qwen1.5-0.5B (MHA, QKV bias), H2O-Danube-1.8B (GQA, SWA),
+Mamba2-2.7B (SSD mixer, no FFN), Mixtral-8x7B (SWA, MoE), DBRX (MoE) and
+Jamba-1.5-Large (a Mamba2 layer with a dense FFN, then an attention layer
+with MoE) in f32,
 with JAX's weights carried across by ``params_from_arrays``. Inputs from
 numpy seeds; 2e-5 for single ops, 2e-3 for attention and whole models (the
 bound of tests/test_flash_serving.py and tests/test_models.py)."""
@@ -30,7 +32,9 @@ from repro_torch.models.transformer import (
 
 torch.set_num_threads(2)
 
-ARCH = {"qwen": "qwen1.5-0.5b", "danube": "h2o-danube-1.8b", "mamba": "mamba2-2.7b"}
+ARCH = {"qwen": "qwen1.5-0.5b", "danube": "h2o-danube-1.8b", "mamba": "mamba2-2.7b",
+        "mixtral": "mixtral-8x7b", "dbrx": "dbrx-132b", "jamba": "jamba-1.5-large-398b"}
+MOE = ["mixtral", "dbrx", "jamba"]
 
 
 def _cfgs(name, **kw):
@@ -104,7 +108,7 @@ def test_attention_train_matches_jax_chunked(name, use_flash):
 
 # -------------------------------------------------------------------- model
 @pytest.mark.parametrize("use_flash", [False, True])
-@pytest.mark.parametrize("name", ["qwen", "danube", "mamba"])
+@pytest.mark.parametrize("name", ["qwen", "danube", "mamba", *MOE])
 def test_forward_matches_jax(name, use_flash):
     jm, jp, m, p = _carried(*_cfgs(name, window=24))
     tok = _tokens(m.cfg, 2, 48)
@@ -139,6 +143,42 @@ def test_flash_forward_matches_jax_flash_on_mesh(mesh8):
     _close(got, want, 2e-3)
 
 
+def _routed_forward(grid, cfg, p, tok):
+    from repro_torch.models.transformer import forward_routes
+
+    return forward_routes(build_model(cfg, grid=grid), p, {"tokens": torch.tensor(tok)})
+
+
+@pytest.mark.parametrize("name,cf", [("mixtral", 1.25), ("dbrx", 1.25), ("jamba", 0.5)])
+def test_routed_forward_matches_jax_on_one_device_mesh(name, cf):
+    """With a grid (a 1x1 gloo world), every MoE layer takes the
+    capacity-bounded route, as JAX's takes ``_moe_local`` under a mesh; at
+    factor ``cf`` token-choices drop (Jamba's one MoE layer routes evenly
+    enough to keep them all at 1.25). Against JAX's forward under a
+    one-device mesh (the chunked attention route), within 2e-3; the dense
+    route, from the same weights, lies farther off."""
+    from jax.sharding import Mesh
+
+    from repro.common.compat import set_mesh
+    from repro_torch.launch.mesh import run_world
+
+    jcfg, cfg = _cfgs(name, window=24, capacity_factor=cf)
+    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    jm = jax_build(jcfg, mesh=mesh)
+    m = build_model(cfg)
+    jp = jm.init(jax.random.key(0))
+    p = params_from_arrays(m, jax.tree.map(np.asarray, jp))
+    tok = _tokens(cfg, 2, 48, seed=8)
+    with set_mesh(mesh):
+        want = jax.jit(lambda q, t: jm.forward(q, {"tokens": t}))(
+            jp, jnp.asarray(tok, jnp.int32))
+    got, sets = run_world(1, 1, _routed_forward, (cfg, p, tok), timeout_s=120)
+    assert max(M.dropped_share(s, cfg) for s in sets) > 0
+    _close(got, want, 2e-3)
+    dense = m.forward(p, {"tokens": torch.tensor(tok)})
+    assert float((dense - torch.tensor(np.asarray(want))).abs().max()) > 2e-3
+
+
 def _decode(m, p, tok, steps):
     caches = m.init_caches(tok.shape[0], steps)
     serve = build_serve_step(m)
@@ -150,7 +190,8 @@ def _decode(m, p, tok, steps):
 
 
 @pytest.mark.parametrize("name,window,steps", [("qwen", 64, 12), ("danube", 6, 16),
-                                               ("mamba", 0, 12)])
+                                               ("mamba", 0, 12), ("mixtral", 6, 16),
+                                               ("dbrx", 0, 12), ("jamba", 0, 12)])
 def test_decode_matches_jax(name, window, steps):
     """Teacher-forced decode against JAX's decode_step; Danube with window 6
     over 16 steps, so that its ring cache wraps (tests/test_models.py);
@@ -165,18 +206,20 @@ def test_decode_matches_jax(name, window, steps):
         lg, caches = jm.decode_step(jp, caches, jnp.asarray(tok[:, i:i + 1], jnp.int32),
                                     jnp.asarray(i, jnp.int32))
         want.append(np.asarray(lg[:, 0], np.float32))
-    if name == "danube":
+    if name in ("danube", "mixtral"):
         assert m.init_caches(2, steps)["l0"]["k"].shape[1] == 6  # a ring of 6
     _close(_decode(m, p, tok, steps), np.stack(want, axis=1), 2e-3)
 
 
 @pytest.mark.parametrize("name,window,steps", [("qwen", 64, 12), ("danube", 6, 16),
-                                               ("mamba", 0, 12)])
+                                               ("mamba", 0, 12), ("mixtral", 6, 16),
+                                               ("jamba", 0, 12)])
 def test_decode_matches_forward(name, window, steps):
     """The port's own teacher-forced decode equals its flash prefill (for
     Mamba2: the recurrence equals the chunked scan; JAX's
-    test_decode_matches_forward_mamba bound, 2e-3)."""
-    _, cfg = _cfgs(name, window=window)
+    test_decode_matches_forward_mamba bound, 2e-3). The MoE configs at
+    capacity factor 8, as JAX's test_decode_matches_forward_hybrid_moe."""
+    _, cfg = _cfgs(name, window=window, capacity_factor=8.0)
     m = build_model(cfg)
     p = m.init(torch.Generator().manual_seed(0))
     tok = _tokens(cfg, 2, steps, seed=6)
@@ -185,17 +228,18 @@ def test_decode_matches_forward(name, window, steps):
 
 
 # ---------------------------------------------------- weights and dtypes
-def _round_trip(name, scan_layers, leaf, width):
+def _round_trip(name, scan_layers, leaf, width, n_layers=3):
     """JAX's tree -> port -> numpy gives it back, for the stacked layout
-    (a full config's defs, here at reduced width with 3 layers) and the
-    per-layer one (a reduced config)."""
-    jcfg, cfg = _cfgs(name, scan_layers=scan_layers, n_layers=3)
+    (a full config's defs, here at reduced width with ``n_layers`` layers)
+    and the per-layer one (a reduced config). ``width(cfg)`` is the shape
+    of one layer's ``leaf`` (layer, module, key)."""
+    jcfg, cfg = _cfgs(name, scan_layers=scan_layers, n_layers=n_layers)
     jm, jp, m, p = _carried(jcfg, cfg, seed=7)
-    stacked = "l1" not in p["layers"]
+    stacked = len(p["layers"]) < n_layers
     assert stacked == scan_layers and m.n_groups == jm.n_groups
     if stacked:
-        mixer, key = leaf
-        assert p["layers"]["l0"][mixer][key].shape == (3, width(cfg))
+        layer, mixer, key = leaf
+        assert p["layers"][layer][mixer][key].shape == (m.n_groups, *width(cfg))
     back = params_to_arrays(p)
     flat = jax.tree_util.tree_leaves_with_path(jax.tree.map(np.asarray, jp))
     assert len(flat) == len(jax.tree_util.tree_leaves(back))
@@ -212,18 +256,36 @@ def _round_trip(name, scan_layers, leaf, width):
 
 @pytest.mark.parametrize("scan_layers", [True, False])
 def test_params_round_trip(scan_layers):
-    _round_trip("qwen", scan_layers, ("attn", "bq"), lambda c: c.n_heads * c.head_dim)
+    _round_trip("qwen", scan_layers, ("l0", "attn", "bq"), lambda c: (c.n_heads * c.head_dim,))
 
 
 @pytest.mark.parametrize("scan_layers", [True, False])
 def test_params_round_trip_mamba(scan_layers):
     """Mamba2's ``layers/l0/mamba/*`` stacked, and its per-layer tree."""
-    _round_trip("mamba", scan_layers, ("mamba", "A_log"), lambda c: c.n_mamba_heads)
+    _round_trip("mamba", scan_layers, ("l0", "mamba", "A_log"), lambda c: (c.n_mamba_heads,))
+
+
+@pytest.mark.parametrize("scan_layers", [True, False])
+def test_params_round_trip_moe(scan_layers):
+    """Mixtral's ``layers/l0/moe/w_up`` stacked to (L, E, d, ff), and its
+    per-layer tree."""
+    _round_trip("mixtral", scan_layers, ("l0", "moe", "w_up"),
+                lambda c: (c.n_experts, c.d_model, c.d_ff))
+
+
+@pytest.mark.parametrize("scan_layers", [True, False])
+def test_params_round_trip_jamba(scan_layers):
+    """Jamba's four layers: stacked, a period of two ((Mamba2, dense),
+    (attention, MoE)) in two groups, ``l1/moe/w_down`` (2, E, ff, d)."""
+    _round_trip("jamba", scan_layers, ("l1", "moe", "w_down"),
+                lambda c: (c.n_experts, c.d_ff, c.d_model), n_layers=4)
 
 
 @pytest.mark.parametrize("name,scan_layers", [("qwen", False), ("danube", False),
                                               ("qwen", True), ("mamba", False),
-                                              ("mamba", True)])
+                                              ("mamba", True), ("mixtral", False),
+                                              ("mixtral", True), ("dbrx", True),
+                                              ("jamba", False)])
 def test_bf16_logit_dtype_matches_jax(name, scan_layers):
     """JAX's promotion decides the types: the reduced Qwen's 1-D f32 biases
     promote its activations to f32 (f32 logits); Danube has none (bf16);
@@ -272,8 +334,8 @@ def test_cast_once_keeps_forward():
     assert torch.equal(m.forward(p, {"tokens": tok}), m.forward(cast, {"tokens": tok}))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b", "minicpm3-4b",
-                                  "whisper-large-v3", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "whisper-large-v3",
+                                  "llava-next-mistral-7b"])
 def test_build_model_refuses_unported(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A10"):
         build_model(ARCHS[arch].reduced())

@@ -1,6 +1,8 @@
 """The port's serve driver (launch/serve.py, engine.run_loop,
 ThroughputHook) against the JAX package's serve loop on the reduced
-Qwen1.5-0.5B and Mamba2-2.7B in their config dtype, from JAX's weights."""
+Qwen1.5-0.5B and Mamba2-2.7B in their config dtype, and on the reduced
+Mixtral-8x7B and Jamba-1.5-Large (MoE, the dense route of JAX's serve) in
+f32, from JAX's weights."""
 
 import dataclasses
 import json
@@ -89,6 +91,30 @@ def test_serve_loop_matches_jax_mamba_bf16():
     differ from each other (2.4e-3 to 5.3e-3): bf16 rounding in a different
     order, so the bound is 1.5e-2, about 3x the typical gap."""
     _serve_loop_matches_jax("mamba2-2.7b", tol=1.5e-2)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b"])
+def test_serve_loop_matches_jax_moe(arch):
+    """Decode through the MoE layers (every expert on every token, as JAX's
+    serve without a mesh), Mixtral's SWA ring and Jamba's Mamba2 state, in
+    f32, within 2e-3."""
+    _serve_loop_matches_jax(arch, dtype="float32")
+
+
+def test_serve_cli_on_cpu_mixtral():
+    """``python -m repro_torch.launch.serve --arch mixtral-8x7b --device cpu``
+    as README gives it: the reduced Mixtral in bf16."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "mixtral-8x7b", "--batch", "2", "--prompt-len", "8", "--gen", "4"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("12 steps in ") and lines[0].endswith(" tok/s")
+    assert lines[1] == "arch=mixtral-8x7b reduced=True batch=2"
+    rows = [ln.strip(" []").split() for ln in lines[3:5]]
+    assert [len(r) for r in rows] == [4, 4]
 
 
 def test_serve_cli_on_cpu():
