@@ -41,6 +41,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      flash prefills on the card and on the CPU, then their MoE layers'
      capacity-bounded route at factor 0.5 in a 1x1 NCCL world on the card
      and a 1x1 gloo world on the CPU, under the routing rule below;
+     MiniCPM3-4B at full width cut to 2 layers in f32, a (1, 256) prefill
+     on the card and on the CPU (logits within 2e-3 x max(1, max|logit|),
+     no kernel launch), and the card's absorbed decode of the first 32
+     tokens against its prefill under the same bound;
   5. TransE_l2 path: ``python -m repro_torch.launch.train --dataset fb15k
      --model transe_l2`` (14,951 x 400 entities, batch 1024, 256 joint
      negatives, T5 deferred update on) for 200 steps; the loss must fall and
@@ -163,6 +167,19 @@ Phases, each fatal on failure (exit code 1, no result line):
      with exactly 4 ssd_scan wrapper calls and 1 flash launch a forward,
      the chunked route beside it; then ``generate`` at batch 4, 32 + 16:
      finite logits, no kernel launch, decode tokens/s.
+ 19. MLA prefill: MiniCPM3-4B at all 62 layers and full width, weights
+     drawn on the card from seed 0, in bf16, on (4, 2048) tokens from numpy
+     seed 0 through ``build_prefill_step(model, use_flash=True)`` (MLA
+     takes the chunked route, as in JAX): no kernel launch, finite logits;
+     forward ms, prefill tokens/s, the device time split into GEMMs, the
+     chunked attention's elementwise work and the rest, the peak device
+     memory, and the f32 forward's distance from the bf16 one.
+ 20. MLA serve: ``repro_torch.launch.serve.generate`` on the 62-layer
+     MiniCPM3-4B at batch 4, 32 + 16 tokens: finite logits, no kernel
+     launch; in f32 from the same weights, the absorbed decode's
+     teacher-forced logits at the 32 prompt positions against the f32
+     prefill, every token within 2e-3 x max(1, max|logit|); decode tokens/s
+     with the card synchronised and the cache bytes a token.
 
 The routing rule, for every comparison that involves MoE layers: a token
 whose top-k expert set differs between the two runs in any MoE layer sits
@@ -263,6 +280,9 @@ MIXTRAL, DBRX, JAMBA = "mixtral-8x7b", "dbrx-132b", "jamba-1.5-large-398b"
 MOE_CUTS = {MIXTRAL: 4, DBRX: 4, JAMBA: 5}
 MOE_TOKENS = {MIXTRAL: (1, 8192), DBRX: (1, 4096), JAMBA: (1, 4096)}
 MOE_SERVE = (4, 32, 16)  # batch, prompt tokens, generated tokens
+MINICPM = "minicpm3-4b"  # phases 19-20: all 62 layers at full width (MLA)
+MLA_TOKENS = (4, 2048)
+MLA_SERVE = (4, 32, 16)
 # the routing rule's largest share of tokens whose top-k expert set differs
 ROUTE_TOL_F32 = 1e-3
 # at full width, the share of tokens two f32 runs must keep within 2e-3 x
@@ -2458,9 +2478,10 @@ def _leaves(tree):
     return [tree]
 
 
-def moe_model(torch, dev, arch):
-    """``arch`` at full width cut to MOE_CUTS[arch] layers (stacked, as the
-    config's ``scan_layers`` stacks them), its weights drawn on the card by
+def moe_model(torch, dev, arch, n_layers=None):
+    """``arch`` at full width cut to ``n_layers`` (MOE_CUTS[arch] by
+    default; stacked, as the config's ``scan_layers`` stacks them), its
+    weights drawn on the card by
     a generator there, seeded 0, and cast once. The full configs stack
     every layer's norms and biases into 2-D tensors, which ``cast`` turns
     to the config's dtype with the matrices, so they compute in it; a cut
@@ -2474,7 +2495,7 @@ def moe_model(torch, dev, arch):
     from repro_torch.models.layers import tree_map
     from repro_torch.models.transformer import build_model
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=MOE_CUTS[arch])
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers or MOE_CUTS[arch])
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -2485,10 +2506,17 @@ def moe_model(torch, dev, arch):
     _sync(torch, dev)
     init_s = time.perf_counter() - t0
     n = sum(t.numel() for t in _leaves(params))
-    print(f"  {cfg.name} cut to {cfg.n_layers} of {get_arch(arch).n_layers} layers "
-          f"({[f'{k[0].value}/{k[1].value}' for k in model.kinds]}): d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} (kv {cfg.n_kv_heads}), "
-          f"{cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.d_ff}, window "
+    kinds = [f"{k[0].value}/{k[1].value}" for k in model.kinds]
+    if len(kinds) > 8:
+        kinds = sorted(set(kinds))
+    ffn = (f"{cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.d_ff}"
+           if cfg.n_experts else f"d_ff {cfg.d_ff}")
+    mla = (f", MLA q_lora {cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} rope "
+           f"{cfg.rope_head_dim}" if cfg.attention.value == "mla" else "")
+    print(f"  {cfg.name} at {cfg.n_layers} of {get_arch(arch).n_layers} layers "
+          f"({kinds}): "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} (kv "
+          f"{cfg.n_kv_heads}){mla}, {ffn}, window "
           f"{cfg.window if cfg.attention.value == 'swa' else 0}, vocab {cfg.vocab_size}; "
           f"{n / 1e9:.2f} B parameters, param_dtype {cfg.param_dtype}, dtype "
           f"{cfg.dtype}; drawn on the card and cast in {init_s:.1f} s")
@@ -2742,6 +2770,243 @@ def run_moe_serve(torch, np, dev, arch):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phases 19-20: MLA (MiniCPM3-4B) at full width and full depth
+# ---------------------------------------------------------------------------
+def _print_distance(label, d):
+    """One line of ``routing_rule``'s reading of two runs without MoE
+    layers (no token flips)."""
+    print(f"  {label}: per-token max |diff| median {d['median']:.3e}, 90% "
+          f"{d['q90']:.3e}, largest {d['max_other']:.3e}; {d['within']:.2%} of tokens "
+          f"within 2e-3 x max(1, max|logit| {d['max_logit']:.2f}) = {d['bound']:.3e}")
+
+
+def check_mla_agreement(torch, np, dev):
+    """Phase 4's MLA row: MiniCPM3-4B at full width cut to 2 layers, kept
+    apart (``scan_layers=False``: stacked, ``fan_in`` would read the layer
+    count; ``check_lm_agreement`` says why), in f32: a (1, 256) prefill on
+    the card and on the CPU from the same weights, within 2e-3 x max(1,
+    max|logit|), no kernel launch (JAX's MLA prefill takes the chunked
+    route); then, on the card, the absorbed decode teacher-forced over the
+    first 32 tokens against the card's prefill, under the same bound (phase
+    20 holds the same at full depth)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model, routing_rule
+
+    cfg = dataclasses.replace(get_arch(MINICPM), n_layers=2, dtype="float32",
+                              scan_layers=False)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1))
+    card = tree_map(lambda t: t.to(dev), params)
+    tok = np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 256))
+    prefill = build_prefill_step(model, use_flash=True)
+    build.reset_launches()
+    got = prefill(card, {"tokens": torch.as_tensor(tok, device=dev)})
+    _, decoded = serve.generate(model, card, tok[:, :32], 0)
+    _sync(torch, dev)
+    n = sum(build.LAUNCHES.values())
+    want = prefill(params, {"tokens": torch.as_tensor(tok)})
+    a = routing_rule(got, want)
+    d = routing_rule(torch.cat(decoded, dim=1), got[:, :32])
+    print(f"  {MINICPM} 2-layer full-width f32 prefill (1, 256): {n} kernel launches; "
+          f"card vs CPU logits max_abs_err {a['max_other']:.3e} (bound {a['bound']:.3e}); "
+          f"card decode of 32 tokens vs card prefill {d['max_other']:.3e} (bound "
+          f"{d['bound']:.3e})")
+    check(n == 0 and got.shape == want.shape and a["max_other"] <= a["bound"]
+          and d["max_other"] <= d["bound"], f"{MINICPM}: card and CPU (or decode and "
+          f"prefill) logits disagree at the 2-layer cut")
+
+
+def mla_attention_split(torch, dev, cfg, B, T, reps=3):
+    """Device ms of one layer's chunked attention (``_sdpa_chunked`` at the
+    MLA prefill's shapes: q and k of hd + rd, v of hd, causal, in the
+    config's dtype), traced alone: (its GEMMs, the rest: the elementwise
+    passes over the (B, 512, H, T) f32 score chunks and the casts). The
+    call keeps the card busy, so its CUDA-event time is its device time: a
+    trace whose kernels sum to less than 90% of it has dropped events (as
+    torch.profiler now and then does) and is taken again, up to three
+    times."""
+    from repro_torch.models.attention import _sdpa_chunked
+    from repro_torch.models.layers import torch_dtype
+
+    dt = torch_dtype(cfg.dtype)
+    g = torch.Generator(device=dev).manual_seed(2)
+    H, dqk = cfg.n_heads, cfg.head_dim + cfg.rope_head_dim
+    q, k = (torch.randn(B, T, H, dqk, generator=g, device=dev).to(dt) for _ in range(2))
+    v = torch.randn(B, T, H, cfg.head_dim, generator=g, device=dev).to(dt)
+    fn = lambda: _sdpa_chunked(q, k, v, causal=True, window=0, q_offset=0)  # noqa: E731
+    ev = event_ms(torch, fn, reps=reps, warmup=1)
+    for _ in range(3):
+        kern = trace_by_kernel(torch, fn, reps)
+        total = sum(kern.values()) / 1e3 / reps
+        if total >= 0.9 * ev:
+            gemm = sum(us for key, us in kern.items()
+                       if any(w in key for w in ("nvjet", "gemm", "cutlass"))) / 1e3 / reps
+            print(f"  one layer's chunked attention alone: {ev:.2f} ms by CUDA events, "
+                  f"{total:.2f} ms traced (GEMMs {gemm:.2f} ms)")
+            return gemm, total - gemm
+        print(f"  (the trace of one layer's attention holds {total:.2f} ms of its "
+              f"{ev:.2f} ms: events dropped; traced again)")
+    raise SmokeFailure("three traces of the chunked attention dropped events")
+
+
+def run_mla_prefill(torch, np, dev, reps=3):
+    """Phase 19: MiniCPM3-4B at all 62 layers and full width, its weights
+    drawn on the card from seed 0 (f32, then cast once: bf16 matrices and,
+    stacked, bf16 norms), ``build_prefill_step(model, use_flash=True)`` on
+    MLA_TOKENS tokens from numpy seed 0: no kernel launch (MLA prefill is
+    the chunked route in JAX and here), finite bf16 logits of the padded
+    vocab; the f32 forward from the same weights and its distance from the
+    bf16 logits (printed); forward ms, prefill tokens/s, the device time
+    split into GEMMs (cuBLAS: the bf16 projections and the attention's f32
+    products), the chunked attention's elementwise work (one layer's
+    ``_sdpa_chunked`` traced alone, times the layer count) and the rest;
+    the peak device memory. Returns (launches, summary)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model, routing_rule
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model, params, cast, init_s = moe_model(torch, dev, MINICPM,
+                                            n_layers=get_arch(MINICPM).n_layers)
+    cfg = model.cfg
+    B, T = MLA_TOKENS
+    inputs = {"tokens": torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T)), device=dev)}
+    prefill = build_prefill_step(model, use_flash=True)
+    build.reset_launches()
+    logits = prefill(cast, inputs)
+    _sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    print(f"  prefill {(B, T)}: logits {tuple(logits.shape)} {logits.dtype}, "
+          f"{sum(launches.values())} kernel launches")
+    check(sum(launches.values()) == 0, f"{MINICPM}: the MLA prefill launched {launches}")
+    check(tuple(logits.shape) == (B, T, model.padded_vocab)
+          and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+          f"{MINICPM}: prefill logits not finite bf16 of the padded vocab")
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    truth = build_prefill_step(model32, use_flash=True)(params, inputs)
+    _sync(torch, dev)
+    dist32 = routing_rule(logits, truth)
+    dist32["argmax_equal"] = float((logits.argmax(-1) == truth.argmax(-1)).float().mean())
+    _print_distance("bf16 forward vs the f32 forward of the same weights", dist32)
+    print(f"    argmax equal at {dist32['argmax_equal']:.2%} of tokens")
+    check(bool(torch.isfinite(truth).all()), f"{MINICPM}: f32 logits not finite")
+    del truth, logits
+    timed = time_prefill(torch, dev, lambda: prefill(cast, inputs), reps)
+    fwd_ms, dev_ms, split, top = timed
+    attn_gemm, attn_rest = mla_attention_split(torch, dev, cfg, B, T)
+    attn_gemm, attn_rest = attn_gemm * cfg.n_layers, attn_rest * cfg.n_layers
+    rest = dev_ms - split["gemm"] - attn_rest
+    print(f"  forward {fwd_ms:.2f} ms ({B * T / fwd_ms * 1e3:.0f} prefill tokens/s); "
+          f"device {dev_ms:.2f} ms: GEMMs {split['gemm']:.2f} ms "
+          f"({split['gemm'] / dev_ms:.1%}; the attention's f32 products "
+          f"{attn_gemm:.2f} ms of them), chunked attention elementwise {attn_rest:.2f} "
+          f"ms ({attn_rest / dev_ms:.1%}), the rest {rest:.2f} ms ({rest / dev_ms:.1%})")
+    for key, us in top:
+        print(f"    {us / 1e3:9.3f} ms  {key[:100]}")
+    summary = dict(layers=cfg.n_layers, params=sum(t.numel() for t in _leaves(params)),
+                   tokens=(B, T), init_s=init_s, forward_ms=fwd_ms,
+                   prefill_tokens_per_s=B * T / fwd_ms * 1e3, device_ms=dev_ms,
+                   device_busy=dev_ms / fwd_ms, gemm_ms=split["gemm"],
+                   attention_gemm_ms=attn_gemm, attention_elementwise_ms=attn_rest,
+                   rest_ms=rest, bf16_from_f32=dist32, peak_gb=_peak_gb(torch, dev))
+    print(f"  peak device memory {summary['peak_gb']:.1f} GB")
+    return launches, summary
+
+
+def run_mla_serve(torch, np, dev):
+    """Phase 20: MiniCPM3-4B at all 62 layers drawn again from seed 0,
+    ``repro_torch.launch.serve.generate`` (the CLI's loop, with its
+    ThroughputHook) at MLA_SERVE in bf16: finite logits, no kernel launch
+    (the absorbed MLA decode is plain PyTorch, as JAX's is jnp). In f32
+    from the same weights, the teacher-forced logits of the absorbed
+    decode at the prompt positions against the f32 prefill (``_mla_train``:
+    the two share no attention code), every token within 2e-3 x max(1,
+    max|logit|), the plain bound, at full depth. Then decode
+    tokens/s with the card synchronised, and the cache bytes a token read
+    from the cache tensors. Returns (launches, summary)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import ThroughputHook
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model, routing_rule
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model, params, cast, _ = moe_model(torch, dev, MINICPM,
+                                       n_layers=get_arch(MINICPM).n_layers)
+    cfg = model.cfg
+    B, T, G = MLA_SERVE
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T))
+    lines = []
+    build.reset_launches()
+    gen, logits = serve.generate(model, cast, prompt, G,
+                                 hooks=[ThroughputHook(B, "tok", lines.append)])
+    _sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    rate = re.findall(r"^(\d+) steps in (\S+)s -> (\S+) tok/s$", "\n".join(lines), re.M)
+    print(f"  generate {(B, T, G)}: {lines[0] if lines else 'no throughput line'}")
+    check(len(rate) == 1 and int(rate[0][0]) == T + G, "no throughput line")
+    check(sum(launches.values()) == 0, f"the MLA decode path launched kernels: {launches}")
+    check(gen.shape == (B, G) and len(logits) == T + G
+          and all(bool(torch.isfinite(lg).all()) for lg in logits),
+          f"{MINICPM}: serve did not generate finite ({B}, {G}) tokens")
+    del logits
+    caches = _leaves(model.init_caches(B, T + G, device=dev))
+    cache_bytes = sum(t.numel() * t.element_size() for t in caches) / (B * (T + G))
+    cache_elt = caches[0].element_size()
+    del caches
+    summary = dict(cli_tok_per_s=float(rate[0][2]), cache_bytes_per_token=cache_bytes)
+
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    _, logits32 = serve.generate(model32, params, prompt, 0)  # f32 caches
+    decoded = torch.cat(logits32, dim=1)
+    del logits32
+    pt = {"tokens": torch.as_tensor(prompt, device=dev)}
+    truth = build_prefill_step(model32, use_flash=True)(params, pt)
+    a = routing_rule(decoded, truth)
+    _print_distance("f32 teacher-forced absorbed decode vs f32 prefill of the prompt", a)
+    check(a["max_other"] <= a["bound"], f"{MINICPM}: f32 teacher-forced decode and prefill "
+          f"disagree beyond 2e-3 x max(1, max|logit|)")
+    summary.update(f32_decode_vs_prefill=a)
+    del decoded, truth, params
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    again, _ = serve.generate(model, cast, prompt, G)
+    _sync(torch, dev)
+    loop_s = time.perf_counter() - t0
+    print(f"  synchronised loop of {T + G} steps {loop_s * 1e3:.1f} ms ({loop_s / (T + G) * 1e3:.2f} "
+          f"ms a step, {B * (T + G) / loop_s:.0f} tok/s); the same tokens as the first "
+          f"run's: {bool(np.array_equal(again, gen))}; cache {cache_bytes:.0f} bytes a "
+          f"token ({cfg.n_layers} layers x (kv_lora {cfg.kv_lora_rank} + rope "
+          f"{cfg.rope_head_dim}) x {cache_elt} bytes)")
+    summary.update(step_ms=loop_s / (T + G) * 1e3, decode_tok_per_s=B * (T + G) / loop_s,
+                   peak_gb=_peak_gb(torch, dev))
+    print(f"  peak device memory {summary['peak_gb']:.1f} GB")
+    return launches, summary
+
+
+T_START = time.perf_counter()
+
+
+def elapsed() -> str:
+    return f"{time.perf_counter() - T_START:.0f} s"
+
+
 def free_card(torch):
     import gc
 
@@ -2772,6 +3037,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    print(f"  ({elapsed()} since the start)")
     print("== 1. environment")
     smi = nvidia_smi_line()
     cap = torch.cuda.get_device_capability(0)
@@ -2780,11 +3046,13 @@ def main() -> int:
     check(cap == (9, 0), f"needs a Hopper card (capability (9, 0)), got {cap}")
     dev = torch.device("cuda", 0)
 
+    print(f"  ({elapsed()} since the start)")
     print("== 2. build")
     t0 = time.perf_counter()
     paths = build.build(verbose=True)
     print(f"  built {len(paths)} libraries in {time.perf_counter() - t0:.2f} s")
 
+    print(f"  ({elapsed()} since the start)")
     print("== 3. kernels vs plain versions")
     kg = fb15k_like(scale=1.0, seed=0)
     # each check draws from a generator of its own, so that a shape added to
@@ -2801,8 +3069,9 @@ def main() -> int:
         for name, o in r.get("other_shapes", {}).items():
             print(f"  {'':16s} {name:>18s}: {_fmt(o)}")
 
+    print(f"  ({elapsed()} since the start)")
     print("== 4. card vs CPU: three dim-400 steps at batch 256, k 64; 2-layer "
-          "Qwen and Mamba2 prefills; reduced Mixtral, DBRX and Jamba prefills")
+          "Qwen, Mamba2 and MiniCPM3 prefills; reduced Mixtral, DBRX and Jamba prefills")
     for model in ("transe_l2", "transe_l1", "distmult"):
         check_agreement(torch, np, dev, model)
     # RESCAL diverges at FB15k's lr 0.25 (loss 1.39 -> 18.1 in three steps)
@@ -2817,58 +3086,71 @@ def main() -> int:
     check_lm_agreement(torch, np, dev, MAMBA, "ssd_scan", use_flash=False)
     for arch in (MIXTRAL, DBRX, JAMBA):
         check_moe_agreement(torch, np, dev, arch)
+    check_mla_agreement(torch, np, dev)
 
+    print(f"  ({elapsed()} since the start)")
     print(f"== 5. TransE_l2 path: FB15k, {MAIN_PATH_STEPS} steps")
     l2_launches, l2_path, *_ = run_path(torch, np, "transe_l2", [], 20)
     check_launched(l2_launches, ("pairwise_l2sq", "dedup_aggregate", "fused_update"),
                    MAIN_PATH_STEPS)
 
+    print(f"  ({elapsed()} since the start)")
     print(f"== 6. TransE_l1 path: FB15k, {MAIN_PATH_STEPS} steps, eval, "
           f"checkpoint, resume to {RESUME_STEPS}")
     l1_launches, l1_path = run_l1_path(torch, np, dev, kg)
 
+    print(f"  ({elapsed()} since the start)")
     print(f"== 7. DistMult path: FB15k, {MAIN_PATH_STEPS} steps")
     dm_launches, dm_path, *_ = run_path(torch, np, "distmult", [], 20)
     check_launched(dm_launches, ("pairwise_dot", "dedup_aggregate", "fused_update"),
                    MAIN_PATH_STEPS)
 
+    print(f"  ({elapsed()} since the start)")
     print(f"== 8. Qwen prefill: {QWEN} at full width, {PREFILL_SHAPE} tokens, flash")
     pre_launches, pre_path, reuse = run_qwen_prefill(torch, np, dev)
 
+    print(f"  ({elapsed()} since the start)")
     print(f"== 9. Qwen serve: python -m repro_torch.launch.serve {' '.join(SERVE_ARGS)}")
     serve_launches, serve_path = run_serve(torch, np, dev, SERVE_ARGS, "flash_attention",
                                            reuse, scaled_f32=False, files=SERVE_DIR)
     del reuse
     torch.cuda.empty_cache()
 
+    print(f"  ({elapsed()} since the start)")
     print(f"== 10. Mamba2 prefill: {MAMBA} at full width, {PREFILL_SHAPE} tokens, ssd_scan")
     m_pre_launches, m_pre_path, reuse = run_mamba_prefill(torch, np, dev)
 
+    print(f"  ({elapsed()} since the start)")
     print(f"== 11. Mamba2 serve: python -m repro_torch.launch.serve "
           f"{' '.join(MAMBA_SERVE_ARGS)}")
     m_serve_launches, m_serve_path = run_serve(torch, np, dev, MAMBA_SERVE_ARGS,
                                                "ssd_scan", reuse, scaled_f32=True)
     del reuse
 
+    print(f"  ({elapsed()} since the start)")
     print("== 12. Hogwild: python -m repro_torch.launch.train --dataset fb15k "
           "--trainers 4 --samplers 4 --metrics-out ... --trace-out ...")
     hog_launches, hog_path = run_hogwild(torch, np, dev, kg)
 
+    print(f"  ({elapsed()} since the start)")
     print("== 13. distributed: python -m repro_torch.launch.train --dataset fb15k "
           "--distributed --mesh 1x1 (NCCL, one rank)")
     dist_launches, dist_path = run_distributed(torch, np, dev)
 
+    print(f"  ({elapsed()} since the start)")
     print("== 14. pipelined KVStore I/O: python -m repro_torch.launch.train --dataset "
           f"fb15k --distributed --mesh 1x1 --pipeline-depth 1 --push-every "
           f"{PIPE_PUSH_EVERY} (NCCL, one rank)")
     pipe_launches, pipe_path = run_pipelined(torch, np, dev, dist_path)
 
+    print(f"  ({elapsed()} since the start)")
     print("== 15. distributed Hogwild: python -m repro_torch.launch.train --dataset "
           "fb15k --distributed --mesh 1x1 --trainers 2 --samplers 2 (NCCL, one rank)")
     dh_launches, dh_path = run_dist_hogwild(torch, np, dev, dist_path,
                                             dist_launches["dist_transe_l2"])
 
     free_card(torch)
+    print(f"  ({elapsed()} since the start)")
     print(f"== 16. MoE prefill at full width: {MIXTRAL} {MOE_TOKENS[MIXTRAL]} (window "
           f"4096), then {DBRX} {MOE_TOKENS[DBRX]}, flash, dense and routed")
     mx_pre_launches, mx_pre_path = run_moe_prefill(torch, np, dev, MIXTRAL, True)
@@ -2876,17 +3158,31 @@ def main() -> int:
     dbrx_pre_launches, dbrx_pre_path = run_moe_prefill(torch, np, dev, DBRX, False)
     free_card(torch)
 
+    print(f"  ({elapsed()} since the start)")
     print(f"== 17. MoE serve: repro_torch.launch.serve.generate, {MIXTRAL} cut to "
           f"{MOE_CUTS[MIXTRAL]} layers, batch {MOE_SERVE[0]}, {MOE_SERVE[1]} + "
           f"{MOE_SERVE[2]} tokens")
     mx_serve_launches, mx_serve_path = run_moe_serve(torch, np, dev, MIXTRAL)
     free_card(torch)
 
+    print(f"  ({elapsed()} since the start)")
     print(f"== 18. Jamba at full width: {JAMBA} cut to {MOE_CUTS[JAMBA]} layers, "
           f"prefill {MOE_TOKENS[JAMBA]} (ssd_scan and flash), then generate")
     jb_pre_launches, jb_pre_path = run_moe_prefill(torch, np, dev, JAMBA, False)
     free_card(torch)
     jb_serve_launches, jb_serve_path = run_moe_serve(torch, np, dev, JAMBA)
+    free_card(torch)
+
+    print(f"  ({elapsed()} since the start)")
+    print(f"== 19. MLA prefill: {MINICPM} at full width and depth, {MLA_TOKENS} tokens, "
+          f"bf16, the chunked route")
+    mla_pre_launches, mla_pre_path = run_mla_prefill(torch, np, dev)
+    free_card(torch)
+
+    print(f"  ({elapsed()} since the start)")
+    print(f"== 20. MLA serve: repro_torch.launch.serve.generate, {MINICPM} at full depth, "
+          f"batch {MLA_SERVE[0]}, {MLA_SERVE[1]} + {MLA_SERVE[2]} tokens, absorbed decode")
+    mla_serve_launches, mla_serve_path = run_mla_serve(torch, np, dev)
     free_card(torch)
 
     launches_of = {"transe_l2": l2_launches, "transe_l1": l1_launches,
@@ -2896,7 +3192,8 @@ def main() -> int:
                    **dist_launches, **pipe_launches, **dh_launches,
                    "mixtral_prefill": mx_pre_launches, "dbrx_prefill": dbrx_pre_launches,
                    "jamba_prefill": jb_pre_launches, "mixtral_serve": mx_serve_launches,
-                   "jamba_serve": jb_serve_launches}
+                   "jamba_serve": jb_serve_launches, "minicpm3_prefill": mla_pre_launches,
+                   "minicpm3_serve": mla_serve_launches}
     kernels = []
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches_of.items()}
@@ -2925,7 +3222,10 @@ def main() -> int:
                                 "dbrx_prefill": dbrx_pre_path,
                                 "mixtral_serve": mx_serve_path,
                                 "jamba_prefill": jb_pre_path,
-                                "jamba_serve": jb_serve_path}}))
+                                "jamba_serve": jb_serve_path,
+                                "minicpm3_prefill": mla_pre_path,
+                                "minicpm3_serve": mla_serve_path}}))
+    print(f"chip_smoke: 20 phases in {elapsed()}")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

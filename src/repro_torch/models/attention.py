@@ -1,5 +1,5 @@
 """Attention mixers of the LM zoo: GQA / MHA, full or sliding-window, with
-an optional QKV bias.
+an optional QKV bias, and MLA (Multi-head Latent Attention, MiniCPM3).
 
 A port of the JAX package's models/attention.py. Paths:
   * ``attention_train``: full sequence. By default query-chunked
@@ -13,11 +13,21 @@ A port of the JAX package's models/attention.py. Paths:
     cache of ``window`` slots. The port writes the cache in place where JAX
     returns an updated copy (Queue C).
 
+MLA takes JAX's routes: ``_mla_train`` (the low-rank q and kv projections
+with their rmsnorms, rope on the rope parts, ``wkv_b`` into k_nope and v,
+the one rope head of k broadcast to every head) always through the chunked
+``_sdpa_chunked`` with a q/k head dim of ``hd + rd`` and a v head dim of
+``hd``: JAX returns before its flash branch, so ``use_flash`` launches no
+kernel here either. ``_mla_decode`` is the absorbed form: the cache holds
+only the latent ``c_kv`` (kv_lora_rank) and the shared ``k_rope``
+(rope_head_dim) a token, and the scores are ``(q_nope . W_uk) . c_kv +
+q_rope . k_rope`` in f32, scaled after the sum.
+
 Matmuls follow JAX's type promotion (``layers.matmul``): an f32 bias or
 residual turns the following products to f32.
 
-MLA (minicpm3) and cross-attention (Whisper) wait for ROADMAP Queue A10 and
-raise ``NotImplementedError``.
+Cross-attention (Whisper) waits for ROADMAP Queue A10.3 and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,13 +38,12 @@ import torch
 
 from repro_torch.common.config import ArchConfig, AttentionKind
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import ParamDef, matmul, rope, torch_dtype
+from repro_torch.models.layers import ParamDef, matmul, rmsnorm, rope, torch_dtype
 
 Params = Dict[str, torch.Tensor]
 
-MLA_TODO = "MLA attention (minicpm3) is not yet ported to repro_torch: ROADMAP Queue A10"
 CROSS_TODO = ("cross-attention (the Whisper decoder) is not yet ported to "
-              "repro_torch: ROADMAP Queue A10")
+              "repro_torch: ROADMAP Queue A10.3")
 
 
 def _window(cfg: ArchConfig) -> int:
@@ -43,9 +52,18 @@ def _window(cfg: ArchConfig) -> int:
 
 # =========================================================================== defs
 def attn_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
-    if cfg.attention == AttentionKind.MLA:
-        raise NotImplementedError(MLA_TODO)
     d, hd, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if cfg.attention == AttentionKind.MLA:
+        qr, kvr, rd = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.rope_head_dim
+        return {
+            "wq_a": ParamDef((d, qr), init="fan_in"),
+            "q_norm": ParamDef((qr,), init="ones"),
+            "wq_b": ParamDef((qr, H * (hd + rd)), init="fan_in"),
+            "wkv_a": ParamDef((d, kvr + rd), init="fan_in"),
+            "kv_norm": ParamDef((kvr,), init="ones"),
+            "wkv_b": ParamDef((kvr, H * 2 * hd), init="fan_in"),
+            "wo": ParamDef((H * hd, d), init="fan_in"),
+        }
     out = {
         "wq": ParamDef((d, H * hd), init="fan_in"),
         "wk": ParamDef((d, Hkv * hd), init="fan_in"),
@@ -102,12 +120,13 @@ def attention_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
                     causal: bool = True, q_offset: int = 0,
                     kv_src: Optional[torch.Tensor] = None,
                     use_flash: bool = False) -> torch.Tensor:
-    """Self-attention of x (B, T, D). ``use_flash`` routes causal
-    self-attention through ``flash_attention``."""
-    if cfg.attention == AttentionKind.MLA:
-        raise NotImplementedError(MLA_TODO)
+    """Self-attention of x (B, T, D). ``use_flash`` routes causal GQA
+    self-attention through ``flash_attention``; MLA takes the chunked
+    route whatever it says, as JAX's does."""
     if kv_src is not None:
         raise NotImplementedError(CROSS_TODO)
+    if cfg.attention == AttentionKind.MLA:
+        return _mla_train(params, x, cfg, causal)
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = matmul(x, params["wq"]).reshape(B, T, H, hd)
@@ -130,14 +149,45 @@ def attention_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
     return matmul(o.reshape(B, T, H * hd), params["wo"])
 
 
+def _mla_split(params: Params, x: torch.Tensor, cfg: ArchConfig):
+    """(q_nope (B, T, H, hd), q_rope (B, T, H, rd), c_kv (B, T, kvr),
+    k_rope (B, T, 1, rd)) of x: JAX's ``_mla_split``."""
+    B, T, _ = x.shape
+    H, hd, rd, kvr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
+    cq = rmsnorm(matmul(x, params["wq_a"]), params["q_norm"], cfg.norm_eps)
+    qall = matmul(cq, params["wq_b"]).reshape(B, T, H, hd + rd)
+    kv_a = matmul(x, params["wkv_a"])  # (B, T, kvr + rd)
+    c_kv = rmsnorm(kv_a[..., :kvr], params["kv_norm"], cfg.norm_eps)
+    return qall[..., :hd], qall[..., hd:], c_kv, kv_a[..., kvr:].reshape(B, T, 1, rd)
+
+
+def _mla_train(params: Params, x: torch.Tensor, cfg: ArchConfig, causal: bool
+               ) -> torch.Tensor:
+    B, T, _ = x.shape
+    H, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_split(params, x, cfg)
+    pos = torch.arange(T, device=x.device)
+    q_rope = rope(q_rope, pos, cfg.rope_theta)
+    k_rope = rope(k_rope, pos, cfg.rope_theta)
+    kv = matmul(c_kv, params["wkv_b"]).reshape(B, T, H, 2 * hd)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([kv[..., :hd], k_rope.expand(B, T, H, rd)], dim=-1)
+    o = _sdpa_chunked(q, k, kv[..., hd:], causal=causal, window=0, q_offset=0)
+    return matmul(o.reshape(B, T, H * hd), params["wo"])
+
+
 # ================================================================== decode path
 def cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, ParamDef]:
-    """The decode cache of one attention layer, in the config's dtype: a
-    ring of ``window`` slots for SWA, else ``seq`` slots."""
-    if cfg.attention == AttentionKind.MLA:
-        raise NotImplementedError(MLA_TODO)
-    Hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    """The decode cache of one attention layer, in the config's dtype: for
+    MLA the latent ``c_kv`` and the shared ``k_rope`` of ``seq`` tokens;
+    else k and v, a ring of ``window`` slots for SWA, else ``seq`` slots."""
     dt = torch_dtype(cfg.dtype)
+    if cfg.attention == AttentionKind.MLA:
+        return {
+            "c_kv": ParamDef((batch, seq, cfg.kv_lora_rank), init="zeros", dtype=dt),
+            "k_rope": ParamDef((batch, seq, cfg.rope_head_dim), init="zeros", dtype=dt),
+        }
+    Hkv, hd = cfg.n_kv_heads, cfg.head_dim
     W = _window(cfg)
     S = min(seq, W) if W else seq
     return {
@@ -151,9 +201,9 @@ def attention_decode(params: Params, x1: torch.Tensor, cache: Dict[str, torch.Te
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x1 (B, 1, D) at position ``index``; writes this token's k and v into
     ``cache`` in place and returns (y, cache)."""
-    if cfg.attention == AttentionKind.MLA:
-        raise NotImplementedError(MLA_TODO)
     index = int(index)
+    if cfg.attention == AttentionKind.MLA:
+        return _mla_decode(params, x1, cache, index, cfg)
     B = x1.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = matmul(x1, params["wq"]).reshape(B, 1, H, hd)
@@ -195,3 +245,39 @@ def _decode_sdpa(q, k, v, valid):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with JAX's type promotion (as ``layers.matmul``)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _mla_decode(params: Params, x1: torch.Tensor, cache: Dict[str, torch.Tensor],
+                index: int, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """JAX's absorbed MLA decode: writes this token's latent and rope key
+    into the cache in place; scores ``(q_nope . W_uk) . c_kv + q_rope .
+    k_rope`` in f32, scaled by ``(hd + rd) ** -0.5`` after the sum; the
+    softmax-weighted latents times ``W_uv``, in f32, cast to x1's type."""
+    B = x1.shape[0]
+    H, hd, rd, kvr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
+    q_nope, q_rope, c_kv1, k_rope1 = _mla_split(params, x1, cfg)
+    posv = torch.full((1,), index, dtype=torch.int32, device=x1.device)
+    q_rope = rope(q_rope, posv, cfg.rope_theta)  # (B, 1, H, rd)
+    k_rope1 = rope(k_rope1, posv, cfg.rope_theta)  # (B, 1, 1, rd)
+    ck, kr = cache["c_kv"], cache["k_rope"]
+    ck[:, index] = c_kv1[:, 0].to(ck.dtype)
+    kr[:, index] = k_rope1[:, 0, 0].to(kr.dtype)
+    wkv = params["wkv_b"].reshape(kvr, H, 2 * hd)
+    w_uk, w_uv = wkv[:, :, :hd], wkv[:, :, hd:]  # (kvr, H, hd) each
+    qt = _einsum("bhd,khd->bhk", q_nope[:, 0], w_uk)  # the activations' type
+    ckf = ck.float()
+    s = torch.einsum("bhk,bsk->bhs", qt.float(), ckf)
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), kr.float())
+    s = s * (hd + rd) ** -0.5
+    valid = torch.arange(ck.shape[1], device=x1.device) <= index
+    p = torch.softmax(torch.where(valid[None, None, :], s, -1e30), dim=-1)
+    lat = torch.einsum("bhs,bsk->bhk", p, ckf)  # (B, H, kvr)
+    o = _einsum("bhk,khd->bhd", lat, w_uv).to(x1.dtype)  # (B, H, hd)
+    return matmul(o.reshape(B, 1, H * hd), params["wo"]), cache

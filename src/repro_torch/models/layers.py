@@ -7,7 +7,10 @@ from a ``torch.Generator`` with the JAX package's rules (normal x scale,
 fan_in 1/sqrt(shape[0]), ones, zeros). The numbers differ from
 ``jax.random``'s, so parity tests carry JAX's weights across
 (``transformer.params_from_arrays``). The port has no mesh, so a def has no
-sharding spec.
+sharding spec; a def that is one rank's slice of a global tensor (the
+experts of an MoE layer over a model group of S ranks) says which slice
+(``parts``, ``part``, ``axis``), and is drawn and carried across at the
+global shape, then sliced.
 """
 
 from __future__ import annotations
@@ -26,23 +29,49 @@ class ParamDef:
     init: str = "normal"  # normal | zeros | ones | fan_in
     scale: float = 0.02
     dtype: torch.dtype = torch.float32
+    # ``shape`` is slice ``part`` of ``parts`` equal slices of a global
+    # tensor along ``axis`` (counted from the end, so stacking keeps it)
+    parts: int = 1
+    part: int = 0
+    axis: int = -1
+
+    @property
+    def global_shape(self) -> Tuple[int, ...]:
+        shape = list(self.shape)
+        shape[self.axis] *= self.parts
+        return tuple(shape)
+
+    def local(self, a):
+        """This def's slice of a global tensor or array ``a``."""
+        if self.parts == 1:
+            return a
+        n = self.shape[self.axis]
+        idx = [slice(None)] * len(self.shape)
+        idx[self.axis] = slice(self.part * n, (self.part + 1) * n)
+        return a[tuple(idx)]
 
     def materialize(self, gen: Optional[torch.Generator], device="cpu") -> torch.Tensor:
         """Draw on the generator's device, then move to ``device``; ``zeros``
         and ``ones`` need no generator.
 
         As in the JAX package, ``fan_in`` reads ``shape[0]``: for a def
-        stacked over layers that is the layer count."""
+        stacked over layers that is the layer count. A slice (``parts`` >
+        1) draws the whole global tensor, so the generator's stream and the
+        slice's numbers are those of the unsliced def; the global f32
+        temporary is the cost."""
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=self.dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=self.dtype, device=device)
+        shape = self.global_shape
         std = self.scale
         if self.init == "fan_in":
-            std = 1.0 / math.sqrt(self.shape[0])
-        x = torch.randn(self.shape, generator=gen, dtype=torch.float32,
-                        device=gen.device)
-        return x.mul_(std).to(device=device, dtype=self.dtype)  # one f32 temporary
+            std = 1.0 / math.sqrt(shape[0])
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+        x = self.local(x.mul_(std))  # one f32 temporary
+        if self.parts > 1:
+            x = x.clone(memory_format=torch.contiguous_format)  # frees the rest
+        return x.to(device=device, dtype=self.dtype)
 
 
 def tree_map(fn, tree):

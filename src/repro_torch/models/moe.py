@@ -25,8 +25,17 @@ renormalised. Two routes of the layer:
     given), and returned with the Switch-style load-balance ``aux``.
 
 ``moe_apply(params, x, cfg, grid)`` picks the dense route with no grid and
-the local route over ``grid.model_group`` with one; a model group of more
-than one rank (experts split across ranks) waits for ROADMAP Queue A10.1b.
+the local route over ``grid.model_group`` with one, placing the experts on
+the model group's S ranks by JAX's rule (``expert_parallel``): with ``E %
+S == 0`` and ``E >= S`` rank s owns experts ``s*E/S ..`` (its ``e0``) and
+the psum takes the union of the experts; otherwise every rank holds all E
+experts on its ``d_ff / S`` slice (``w_up``/``w_gate`` ``[:, :, slice]``,
+``w_down`` ``[:, slice, :]``) and the same psum, a sum of partial products
+in the activations' type, completes the contraction. ``moe_defs(cfg,
+model_par, part)`` gives rank ``part``'s local shapes, each def marked as
+a slice of JAX's global tensor (``layers.ParamDef.parts``). The tokens a
+rank routes are its machine's batch rows (``transformer.machine_rows``),
+so the capacity is per data shard, as in JAX.
 The expert products are ``torch.matmul`` (cuBLAS on the card), as JAX's
 are jnp: no kernel of the port runs here.
 """
@@ -42,11 +51,6 @@ from repro_torch.common.config import ArchConfig
 from repro_torch.models.layers import ParamDef, activation_fn, matmul
 
 Params = Dict[str, torch.Tensor]
-
-EP_TODO = ("MoE over a model group of more than one rank (expert-parallel or "
-           "tensor-parallel experts) is not yet ported to repro_torch: ROADMAP "
-           "Queue A10.1b")
-
 
 # ------------------------------------------------------------------- dense FFN
 def ffn_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
@@ -71,15 +75,34 @@ def ffn_apply(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------------- MoE
-def moe_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+def expert_parallel(cfg: ArchConfig, model_par: int) -> bool:
+    """JAX's placement rule: each rank owns ``E / model_par`` whole experts,
+    else (tensor-parallel experts) every rank a ``d_ff`` slice of all E."""
+    return cfg.n_experts % model_par == 0 and cfg.n_experts >= model_par
+
+
+def moe_defs(cfg: ArchConfig, model_par: int = 1, part: int = 0) -> Dict[str, ParamDef]:
+    """Rank ``part``'s MoE parameters of a model group of ``model_par``
+    ranks: local shapes, the expert tensors marked as slices of JAX's
+    global ones (the router is whole on every rank)."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    S = model_par
+    if expert_parallel(cfg, S):
+        up = dict(shape=(E // S, d, ff), axis=-3)
+        down = dict(shape=(E // S, ff, d), axis=-3)
+    else:
+        if ff % S:
+            raise ValueError(f"{cfg.name}: d_ff {ff} does not split over {S} ranks")
+        up = dict(shape=(E, d, ff // S), axis=-1)
+        down = dict(shape=(E, ff // S, d), axis=-2)
+    sl = dict(init="fan_in", parts=S, part=part)
     out = {
         "router": ParamDef((d, E), init="fan_in"),
-        "w_up": ParamDef((E, d, ff), init="fan_in"),
-        "w_down": ParamDef((E, ff, d), init="fan_in"),
+        "w_up": ParamDef(**up, **sl),
+        "w_down": ParamDef(**down, **sl),
     }
     if cfg.activation == "silu":
-        out["w_gate"] = ParamDef((E, d, ff), init="fan_in")
+        out["w_gate"] = ParamDef(**up, **sl)
     return out
 
 
@@ -176,12 +199,12 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ArchConfig, grid=None
               ) -> torch.Tensor:
     """The MoE layer of x (B, S, D): the dense route with no ``grid`` (as
     JAX with no mesh), else the capacity-bounded route over the grid's
-    model group."""
+    model group, on this rank's experts (``params`` as ``moe_defs(cfg,
+    grid.S, grid.s)`` shapes them)."""
     if grid is None:
         return moe_dense_ref(params, x, cfg)[0]
-    if grid.S > 1:
-        raise NotImplementedError(EP_TODO)
-    return moe_local(params, x, cfg, group=grid.model_group)[0]
+    e0 = grid.s * (cfg.n_experts // grid.S) if expert_parallel(cfg, grid.S) else 0
+    return moe_local(params, x, cfg, e0=e0, group=grid.model_group)[0]
 
 
 def flipped(sets_a: Sequence[torch.Tensor], sets_b: Sequence[torch.Tensor],

@@ -4,10 +4,11 @@ layers with dense or Mixture-of-Experts FFNs.
 A port of the JAX package's models/transformer.py for the configs whose
 layers are (attention or Mamba2 mixer, dense FFN, MoE or none) with no
 encoder and no frontend: Qwen1.5-0.5B, H2O-Danube-1.8B (SWA), Minitron-4B,
-Mamba2-2.7B (attention-free, no FFN), Mixtral-8x7B (SWA, MoE), DBRX (MoE)
-and Jamba-1.5-Large (Mamba2 and attention 7:1, MoE every other layer). The
-layer kinds follow JAX's ``_pattern`` and the stacking its ``_period``.
-``build_model(cfg, grid=None)`` returns a ``Model`` exposing
+MiniCPM3-4B (MLA), Mamba2-2.7B (attention-free, no FFN), Mixtral-8x7B
+(SWA, MoE), DBRX (MoE) and Jamba-1.5-Large (Mamba2 and attention 7:1, MoE
+every other layer). The layer kinds follow JAX's ``_pattern`` and the
+stacking its ``_period``. ``build_model(cfg, grid=None)`` returns a
+``Model`` exposing
 
     defs / init(gen, device) / cast(params)  parameters (JAX's tree layout)
     forward(params, inputs, use_flash)       logits for prefill
@@ -18,7 +19,9 @@ layer kinds follow JAX's ``_pattern`` and the stacking its ``_period``.
 A Mamba2 layer runs the SSD scan through ``kernels.ssd_scan`` in
 ``forward`` (the CUDA kernel for tensors on the card, whatever
 ``use_flash`` says) and the recurrence in ``decode_step``; its decode
-cache is the conv windows and the SSM state, written in place.
+cache is the conv windows and the SSM state, written in place. An MLA
+layer (``models/attention.py``) prefills on the chunked route and decodes
+in the absorbed form against a cache of latents.
 
 The parameter tree has JAX's keys and layout: with ``scan_layers`` (full
 configs) the layers are stacked on a leading axis under ``layers/l0``; the
@@ -33,15 +36,21 @@ nothing left to do.
 
 An MoE layer (``models/moe.py``) takes JAX's no-mesh route, every expert
 on every token, unless the model has a ``grid`` (a ``launch/mesh.py``
-``ProcessGrid``, where JAX has its mesh): then it takes the
+``ProcessGrid``, where JAX has its mesh; the machine group is JAX's
+``data`` axis, the model group its ``model`` axis): then it takes the
 capacity-bounded route over the grid's model group, which may drop
-token-choices. A grid of more than one server (``S > 1``: experts across
-ranks) waits for ROADMAP Queue A10.1b. ``forward_routes`` gives the
-logits with each MoE layer's expert choices, which the routing rule
-compares. MLA, the Whisper encoder-decoder and the LLaVA frontend raise
-``NotImplementedError`` at ``build_model``, naming their ROADMAP item.
-``params_from_arrays`` / ``params_to_arrays`` carry weights between the JAX
-package (nested numpy arrays) and the port.
+token-choices, on this rank's experts (``moe.moe_defs(cfg, grid.S,
+grid.s)``). Every other layer is whole on every rank and computes this
+machine's batch rows (``machine_rows``): JAX shards attention, the dense
+FFN and the embeddings over ``model`` only as a layout, so the numbers are
+those of unsharded layers (a stated divergence: more memory a rank). The
+vocab pads to ``128 * S`` with S > 1, else to 8, as JAX's does.
+``forward_routes`` gives the logits with each MoE layer's expert choices,
+which the routing rule compares. The Whisper encoder-decoder and the LLaVA
+frontend raise ``NotImplementedError`` at ``build_model``, naming their
+ROADMAP item. ``params_from_arrays`` / ``params_to_arrays`` carry weights
+between the JAX package (nested numpy arrays) and the port; with a grid,
+``params_from_arrays`` keeps this rank's slice of JAX's global arrays.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.config import ArchConfig, AttentionKind, FFNKind, Frontend, MixerKind
+from repro_torch.common.config import ArchConfig, FFNKind, Frontend, MixerKind
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
@@ -65,17 +74,18 @@ Params = Dict[str, Any]
 
 def unported(cfg: ArchConfig) -> Optional[str]:
     """Why ``cfg`` does not run in the port yet, or None."""
+    item = "A10"
     if cfg.mixer_pattern not in ("attn", "mamba", "jamba"):
         what = f"the {cfg.mixer_pattern} layer pattern"
-    elif cfg.attention == AttentionKind.MLA:
-        what = "MLA attention (minicpm3)"
     elif cfg.enc_dec:
         what = "the Whisper encoder-decoder"
+        item = "A10.3"
     elif cfg.frontend != Frontend.NONE:
         what = "the LLaVA vision frontend"
+        item = "A10.4"
     else:
         return None
-    return f"{cfg.name}: {what} not yet ported to repro_torch: ROADMAP Queue A10"
+    return f"{cfg.name}: {what} not yet ported to repro_torch: ROADMAP Queue {item}"
 
 
 Kind = Tuple[MixerKind, FFNKind]
@@ -93,10 +103,12 @@ def _period(pat: List[Kind]) -> int:
     return n
 
 
-def _layer_defs(cfg: ArchConfig, kind: Kind) -> Dict[str, Any]:
+def _layer_defs(cfg: ArchConfig, kind: Kind, model_par: int = 1, part: int = 0
+                ) -> Dict[str, Any]:
     """One layer: ln1 and its mixer (``attn`` or ``mamba``), then ``ln2``
-    and the ``moe`` of an MoE layer, or the dense ``ffn`` when d_ff > 0
-    (Mamba2 has none)."""
+    and the ``moe`` of an MoE layer (rank ``part``'s experts of a model
+    group of ``model_par``), or the dense ``ffn`` when d_ff > 0 (Mamba2 has
+    none)."""
     mixer, ffn = kind
     d = cfg.d_model
     out: Dict[str, Any] = {"ln1": ParamDef((d,), init="ones")}
@@ -106,7 +118,7 @@ def _layer_defs(cfg: ArchConfig, kind: Kind) -> Dict[str, Any]:
         out["mamba"] = SSM.mamba_defs(cfg)
     if ffn == FFNKind.MOE:
         out["ln2"] = ParamDef((d,), init="ones")
-        out["moe"] = M.moe_defs(cfg)
+        out["moe"] = M.moe_defs(cfg, model_par, part)
     elif cfg.d_ff > 0:
         out["ln2"] = ParamDef((d,), init="ones")
         out["ffn"] = M.ffn_defs(cfg)
@@ -122,8 +134,6 @@ class Model:
         why = unported(self.cfg)
         if why:
             raise NotImplementedError(why)
-        if self.grid is not None and self.grid.S > 1:
-            raise NotImplementedError(M.EP_TODO)
         cfg = self.cfg
         self.pattern = _pattern(cfg)
         self.period = _period(self.pattern) if cfg.scan_layers else cfg.n_layers
@@ -135,14 +145,18 @@ class Model:
     # ---------------------------------------------------------------- params
     def _build_defs(self):
         cfg = self.cfg
-        self.padded_vocab = -(-cfg.vocab_size // 8) * 8  # no mesh: 8-aligned
+        S = self.grid.S if self.grid is not None else 1
+        part = self.grid.s if self.grid is not None else 0
+        # JAX pads so the table shards evenly over 'model' (and 128-aligns)
+        mult = 128 * S if S > 1 else 8
+        self.padded_vocab = -(-cfg.vocab_size // mult) * mult
         d: Dict[str, Any] = {
             "tok_emb": ParamDef((self.padded_vocab, cfg.d_model), init="normal",
                                 scale=0.02)}
         if not cfg.tie_embeddings:
             d["unembed"] = ParamDef((cfg.d_model, self.padded_vocab), init="fan_in")
         d["final_ln"] = ParamDef((cfg.d_model,), init="ones")
-        per_group = {f"l{j}": _layer_defs(cfg, self.pattern[j])
+        per_group = {f"l{j}": _layer_defs(cfg, self.pattern[j], S, part)
                      for j in range(self.period)}
         d["layers"] = (stack_defs([per_group] * self.n_groups) if self.n_groups > 1
                        else per_group)
@@ -154,7 +168,11 @@ class Model:
 
     def init(self, gen: torch.Generator, device="cpu") -> Params:
         """Parameters drawn from ``gen`` (on its device) by the JAX package's
-        init rules, then moved to ``device``."""
+        init rules, then moved to ``device``. With a grid of S > 1 ranks,
+        this rank's slice of what the model without a grid draws from the
+        same generator (at the same padded vocab): each expert tensor is
+        drawn whole, in f32, then sliced, so a rank's draw needs one
+        layer's global expert tensor beside its own slices."""
         return materialize(self.defs, gen, device)
 
     def cast(self, params: Params) -> Params:
@@ -218,8 +236,9 @@ class Model:
 
     # ---------------------------------------------------------------- decode
     def cache_defs(self, batch: int, seq: int) -> Dict[str, Any]:
-        """Per layer: the k and v cache of an attention layer, the conv
-        windows and SSM state of a Mamba2 layer."""
+        """Per layer: the k and v cache of an attention layer (the latents
+        and rope keys of an MLA one), the conv windows and SSM state of a
+        Mamba2 layer. Under a grid ``batch`` is this machine's rows."""
         def one(kind):
             if kind[0] == MixerKind.ATTN:
                 return A.cache_defs(self.cfg, batch, seq)
@@ -256,14 +275,40 @@ def build_model(cfg: ArchConfig, grid=None) -> Model:
     return Model(cfg=cfg, grid=grid)
 
 
+# ------------------------------------------------------------- the batch rows
+def machine_rows(grid, batch: int) -> slice:
+    """The rows of a global batch that this rank computes: with the batch
+    split over the grid's M machines (``batch % M == 0``) machine m's
+    ``batch / M``, so an MoE layer's capacity is per data shard; otherwise
+    every row, replicated over the machines, as JAX replicates a decode
+    batch that does not split (``decode_step``'s ``moe_axes``) and its
+    caches with it. The same rule for prefill, decode and caches."""
+    if grid is None or batch % grid.M:
+        return slice(0, batch)
+    n = batch // grid.M
+    return slice(grid.m * n, (grid.m + 1) * n)
+
+
+def gather_rows(grid, x: torch.Tensor, batch: int) -> torch.Tensor:
+    """The global batch (``batch`` rows along axis 0) from each machine's
+    ``machine_rows`` of it: an all_gather over the machine group when the
+    batch is split, else ``x`` as it is."""
+    from repro_torch.common import collectives
+
+    if grid is None or batch % grid.M or grid.M == 1:
+        return x
+    return collectives.all_gather_plain(x, grid.machine_group, axis=0)
+
+
 # ------------------------------------------------------------ weights across
 def params_from_arrays(model: Model, tree, device="cpu") -> Params:
     """The port's parameters from the JAX package's tree of numpy arrays
     (``jax.tree.map(np.asarray, params)``) of the same config: stacked
     under ``layers/l0`` for a config with ``scan_layers``, per layer
     (``layers/l0 .. l{n-1}``) for a reduced one, an MoE layer's expert
-    tensors then (L, E, d, ff) and (E, d, ff). Keys and shapes must match
-    the model's defs."""
+    tensors then (L, E, d, ff) and (E, d, ff). Keys and global shapes must
+    match the model's defs; a def that is this rank's slice (a grid of S >
+    1) keeps its slice of JAX's global array."""
 
     def conv(defs, arrs, path):
         if isinstance(defs, dict):
@@ -272,10 +317,10 @@ def params_from_arrays(model: Model, tree, device="cpu") -> Params:
                 raise ValueError(f"params{path}: expected keys {sorted(defs)}, got {got}")
             return {k: conv(defs[k], arrs[k], f"{path}/{k}") for k in defs}
         a = np.asarray(arrs, dtype=np.float32)
-        if a.shape != tuple(defs.shape):
-            raise ValueError(f"params{path}: expected shape {tuple(defs.shape)}, "
+        if a.shape != defs.global_shape:
+            raise ValueError(f"params{path}: expected shape {defs.global_shape}, "
                              f"got {a.shape}")
-        return torch.tensor(a, dtype=defs.dtype, device=device)
+        return torch.tensor(defs.local(a), dtype=defs.dtype, device=device)
 
     return conv(model.defs, tree, "")
 

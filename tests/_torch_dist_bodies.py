@@ -201,3 +201,46 @@ def failing_sampler_run(grid, prog, batches, fail_at):
     engine.train_loop(step, init_dist_state(prog, grid, 0), None, len(batches),
                       n_trainers=2, n_samplers=2, sampler_factory=factory,
                       ordered=True)
+
+
+def lm_world_cases(grid, cases):
+    """The LM zoo's mesh program on this grid, one case after another: for
+    each (cfg, JAX's global weights as numpy arrays, prefill tokens (B, T),
+    the ``use_flash`` settings, decode token arrays (B, steps)), this
+    rank's model (``build_model(cfg, grid)``, its slice of the weights)
+    runs its machine's rows (``machine_rows``) of every batch. Returns, for
+    each case, {"prefill": [(logits (B, T, V), each MoE layer's expert
+    choices (B*T, k)) for each use_flash], "decode": [teacher-forced
+    logits (B, steps, V) for each decode batch]}, gathered over the
+    machines."""
+    from repro_torch.models.transformer import (
+        build_model, forward_routes, gather_rows, machine_rows, params_from_arrays,
+    )
+
+    out = []
+    for cfg, arrays, tokens, flash, decodes in cases:
+        model = build_model(cfg, grid=grid)
+        params = params_from_arrays(model, arrays)
+        B, T = tokens.shape
+        rows = machine_rows(grid, B)
+        res = {"prefill": [], "decode": []}
+        for use_flash in flash:
+            logits, sets = forward_routes(model, params,
+                                          {"tokens": torch.from_numpy(tokens[rows])},
+                                          use_flash=use_flash)
+            sets = [gather_rows(grid, s.reshape(-1, T, s.shape[-1]), B).reshape(B * T, -1)
+                    for s in sets]
+            res["prefill"].append((gather_rows(grid, logits, B), sets))
+        for tok in decodes:
+            B, steps = tok.shape
+            rows = machine_rows(grid, B)
+            local = torch.from_numpy(tok[rows])
+            caches = model.init_caches(local.shape[0], steps)
+            logits = []
+            with torch.no_grad():
+                for i in range(steps):
+                    lg, caches = model.decode_step(params, caches, local[:, i:i + 1], i)
+                    logits.append(lg[:, 0])
+            res["decode"].append(gather_rows(grid, torch.stack(logits, dim=1), B))
+        out.append(res)
+    return out

@@ -695,6 +695,40 @@ def test_flash_prefill_on_card_matches_cpu(cuda, arch):
                                rtol=2e-3, atol=2e-3)
 
 
+def test_mla_prefill_and_decode_on_card_match_cpu(cuda):
+    """The reduced MiniCPM3 (MLA) in f32: its prefill (``use_flash=True``,
+    which MLA ignores, as JAX's does) and five teacher-forced absorbed
+    decode steps on the card against the CPU from the same weights, within
+    2e-5 x max(1, max|logit|); no kernel launches."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(ARCHS["minicpm3-4b"].reduced(), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), params)
+    tok = torch.tensor(_rng(14).integers(0, cfg.vocab_size, (2, 96)))
+    prefill, serve = build_prefill_step(model, use_flash=True), build_serve_step(model)
+    build.reset_launches()
+    got = [prefill(card, {"tokens": tok.to(cuda)})]
+    caches = model.init_caches(2, 5, device=cuda)
+    for i in range(5):
+        got.append(serve(card, caches, tok[:, i:i + 1].to(cuda), i)[0])
+    torch.cuda.synchronize()
+    assert sum(build.LAUNCHES.values()) == 0
+    want = [prefill(params, {"tokens": tok})]
+    caches = model.init_caches(2, 5)
+    for i in range(5):
+        want.append(serve(params, caches, tok[:, i:i + 1], i)[0])
+    for g, w in zip(got, want):
+        tol = 2e-5 * max(1.0, float(w.abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= tol
+
+
 MOE_ARCHS = ["mixtral-8x7b", "dbrx-132b", "jamba-1.5-large-398b"]
 
 

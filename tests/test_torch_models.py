@@ -1,8 +1,8 @@
 """The port's LM-zoo modules (models/*) against the JAX package's, on the
 reduced Qwen1.5-0.5B (MHA, QKV bias), H2O-Danube-1.8B (GQA, SWA),
-Mamba2-2.7B (SSD mixer, no FFN), Mixtral-8x7B (SWA, MoE), DBRX (MoE) and
-Jamba-1.5-Large (a Mamba2 layer with a dense FFN, then an attention layer
-with MoE) in f32,
+MiniCPM3-4B (MLA), Mamba2-2.7B (SSD mixer, no FFN), Mixtral-8x7B (SWA,
+MoE), DBRX (MoE) and Jamba-1.5-Large (a Mamba2 layer with a dense FFN,
+then an attention layer with MoE) in f32,
 with JAX's weights carried across by ``params_from_arrays``. Inputs from
 numpy seeds; 2e-5 for single ops, 2e-3 for attention and whole models (the
 bound of tests/test_flash_serving.py and tests/test_models.py)."""
@@ -33,7 +33,8 @@ from repro_torch.models.transformer import (
 torch.set_num_threads(2)
 
 ARCH = {"qwen": "qwen1.5-0.5b", "danube": "h2o-danube-1.8b", "mamba": "mamba2-2.7b",
-        "mixtral": "mixtral-8x7b", "dbrx": "dbrx-132b", "jamba": "jamba-1.5-large-398b"}
+        "mixtral": "mixtral-8x7b", "dbrx": "dbrx-132b", "jamba": "jamba-1.5-large-398b",
+        "minicpm": "minicpm3-4b"}
 MOE = ["mixtral", "dbrx", "jamba"]
 
 
@@ -108,7 +109,7 @@ def test_attention_train_matches_jax_chunked(name, use_flash):
 
 # -------------------------------------------------------------------- model
 @pytest.mark.parametrize("use_flash", [False, True])
-@pytest.mark.parametrize("name", ["qwen", "danube", "mamba", *MOE])
+@pytest.mark.parametrize("name", ["qwen", "danube", "mamba", *MOE, "minicpm"])
 def test_forward_matches_jax(name, use_flash):
     jm, jp, m, p = _carried(*_cfgs(name, window=24))
     tok = _tokens(m.cfg, 2, 48)
@@ -191,7 +192,8 @@ def _decode(m, p, tok, steps):
 
 @pytest.mark.parametrize("name,window,steps", [("qwen", 64, 12), ("danube", 6, 16),
                                                ("mamba", 0, 12), ("mixtral", 6, 16),
-                                               ("dbrx", 0, 12), ("jamba", 0, 12)])
+                                               ("dbrx", 0, 12), ("jamba", 0, 12),
+                                               ("minicpm", 0, 12)])
 def test_decode_matches_jax(name, window, steps):
     """Teacher-forced decode against JAX's decode_step; Danube with window 6
     over 16 steps, so that its ring cache wraps (tests/test_models.py);
@@ -213,11 +215,12 @@ def test_decode_matches_jax(name, window, steps):
 
 @pytest.mark.parametrize("name,window,steps", [("qwen", 64, 12), ("danube", 6, 16),
                                                ("mamba", 0, 12), ("mixtral", 6, 16),
-                                               ("jamba", 0, 12)])
+                                               ("jamba", 0, 12), ("minicpm", 0, 12)])
 def test_decode_matches_forward(name, window, steps):
     """The port's own teacher-forced decode equals its flash prefill (for
-    Mamba2: the recurrence equals the chunked scan; JAX's
-    test_decode_matches_forward_mamba bound, 2e-3). The MoE configs at
+    Mamba2: the recurrence equals the chunked scan; for MiniCPM3 the
+    absorbed MLA decode equals the chunked prefill, as JAX's
+    test_decode_matches_forward_mla; JAX's bound, 2e-3). The MoE configs at
     capacity factor 8, as JAX's test_decode_matches_forward_hybrid_moe."""
     _, cfg = _cfgs(name, window=window, capacity_factor=8.0)
     m = build_model(cfg)
@@ -274,6 +277,14 @@ def test_params_round_trip_moe(scan_layers):
 
 
 @pytest.mark.parametrize("scan_layers", [True, False])
+def test_params_round_trip_mla(scan_layers):
+    """MiniCPM3's ``layers/l0/attn/{wq_a, q_norm, ...}`` stacked, and its
+    per-layer tree."""
+    _round_trip("minicpm", scan_layers, ("l0", "attn", "q_norm"),
+                lambda c: (c.q_lora_rank,))
+
+
+@pytest.mark.parametrize("scan_layers", [True, False])
 def test_params_round_trip_jamba(scan_layers):
     """Jamba's four layers: stacked, a period of two ((Mamba2, dense),
     (attention, MoE)) in two groups, ``l1/moe/w_down`` (2, E, ff, d)."""
@@ -285,7 +296,8 @@ def test_params_round_trip_jamba(scan_layers):
                                               ("qwen", True), ("mamba", False),
                                               ("mamba", True), ("mixtral", False),
                                               ("mixtral", True), ("dbrx", True),
-                                              ("jamba", False)])
+                                              ("jamba", False), ("minicpm", False),
+                                              ("minicpm", True)])
 def test_bf16_logit_dtype_matches_jax(name, scan_layers):
     """JAX's promotion decides the types: the reduced Qwen's 1-D f32 biases
     promote its activations to f32 (f32 logits); Danube has none (bf16);
@@ -322,6 +334,27 @@ def test_full_mamba_logit_dtype_matches_jax_eval_shape():
     assert str(got.dtype).split(".")[-1] == str(want.dtype) == "bfloat16"
 
 
+def test_full_minicpm_logit_dtype_matches_jax_eval_shape():
+    """The full MiniCPM3-4B (62 stacked layers, d 2560, 40 heads, bf16):
+    jax.eval_shape of its forward against the port's forward on the meta
+    device; both give bf16 logits of the padded vocab (the stacked 2-D
+    q_norm and kv_norm cast with the matrices)."""
+    from repro_torch.models.layers import tree_map
+
+    shape = (2, 64)
+    jm = jax_build(JAX_ARCHS[ARCH["minicpm"]])
+    want = jax.eval_shape(lambda q, t: jm.forward(q, {"tokens": t}),
+                          jm.abstract_params(), jax.ShapeDtypeStruct(shape, jnp.int32))
+    m = build_model(ARCHS[ARCH["minicpm"]])
+    assert (m.period, m.n_groups) == (jm.period, jm.n_groups) == (1, 62)
+    assert m.defs["layers"]["l0"]["attn"]["q_norm"].shape == (62, 768)
+    p = tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), m.defs)
+    got = build_prefill_step(m, use_flash=True)(
+        p, {"tokens": torch.zeros(shape, dtype=torch.long, device="meta")})
+    assert tuple(got.shape) == want.shape == (*shape, 73448)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype) == "bfloat16"
+
+
 def test_cast_once_keeps_forward():
     _, cfg = _cfgs("qwen", dtype="bfloat16", scan_layers=True)
     m = build_model(cfg)
@@ -334,10 +367,25 @@ def test_cast_once_keeps_forward():
     assert torch.equal(m.forward(p, {"tokens": tok}), m.forward(cast, {"tokens": tok}))
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "whisper-large-v3",
-                                  "llava-next-mistral-7b"])
-def test_build_model_refuses_unported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A10"):
+@pytest.mark.parametrize("arch,item", [("minicpm3-4b", None),
+                                       ("whisper-large-v3", "A10.3"),
+                                       ("llava-next-mistral-7b", "A10.4")],
+                         ids=["minicpm3-4b", "whisper-large-v3", "llava-next-mistral-7b"])
+def test_build_model_refuses_unported(arch, item):
+    """Whisper and LLaVA still refuse, naming their ROADMAP items;
+    MiniCPM3 (MLA, A10.2) builds, with JAX's parameter tree."""
+    if item is None:
+        jm, m = jax_build(JAX_ARCHS[arch].reduced()), build_model(ARCHS[arch].reduced())
+        flat = jax.tree_util.tree_leaves_with_path(jm.defs, is_leaf=lambda x: hasattr(
+            x, "materialize"))
+        got = m.defs
+        for path, want in flat:
+            node = got
+            for key in path:
+                node = node[key.key]
+            assert tuple(node.shape) == tuple(want.shape)
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
         build_model(ARCHS[arch].reduced())
 
 

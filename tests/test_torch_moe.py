@@ -221,18 +221,22 @@ def test_moe_apply_with_a_grid_is_moe_local():
     assert not torch.equal(got, M.moe_apply(p, x, cfg))  # tokens dropped
 
 
-def test_grid_of_two_servers_refuses():
-    """Experts across the ranks of a model group wait for A10.1b."""
+def test_grid_of_two_servers_refuses(monkeypatch):
+    """A grid of two servers now builds (A10.1b; its numbers are held to
+    JAX's mesh program in tests/test_torch_moe_world.py): each rank's defs
+    hold its half of the experts. What still refuses is a CUDA world of
+    more ranks than cards: NCCL places one rank a card."""
     _, cfg = _cfgs(4, 2)
-    grid = ProcessGrid(M=1, S=2, rank=0, machine_group=None, model_group=None,
-                       device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A10.1b"):
-        build_model(cfg, grid=grid)
-    _, p = _weights(_cfgs(4, 2)[0])
-    with pytest.raises(NotImplementedError, match="A10.1b"):
-        M.moe_apply(p, torch.zeros(1, 2, 64), cfg, grid)
-    one = dataclasses.replace(grid, S=1)
-    assert build_model(cfg, grid=one).kinds[0][1] == FFNKind.MOE
+    for s in range(2):
+        grid = ProcessGrid(M=1, S=2, rank=s, machine_group=None, model_group=None,
+                           device=torch.device("cpu"))
+        m = build_model(cfg, grid=grid)
+        assert m.kinds[0][1] == FFNKind.MOE
+        assert m.defs["layers"]["l0"]["moe"]["w_up"].shape == (2, 64, 128)
+        assert m.defs["layers"]["l0"]["moe"]["router"].shape == (64, 4)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA devices"):
+        run_world(1, 2, _grid_body, (None, None, cfg), device="cuda")
 
 
 # ---------------------------------------------------------------------- ties

@@ -1,8 +1,8 @@
 """The port's serve driver (launch/serve.py, engine.run_loop,
 ThroughputHook) against the JAX package's serve loop on the reduced
 Qwen1.5-0.5B and Mamba2-2.7B in their config dtype, and on the reduced
-Mixtral-8x7B and Jamba-1.5-Large (MoE, the dense route of JAX's serve) in
-f32, from JAX's weights."""
+Mixtral-8x7B and Jamba-1.5-Large (MoE, the dense route of JAX's serve) and
+MiniCPM3-4B (MLA, the absorbed decode) in f32, from JAX's weights."""
 
 import dataclasses
 import json
@@ -99,6 +99,34 @@ def test_serve_loop_matches_jax_moe(arch):
     serve without a mesh), Mixtral's SWA ring and Jamba's Mamba2 state, in
     f32, within 2e-3."""
     _serve_loop_matches_jax(arch, dtype="float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serve_loop_matches_jax_mla(dtype):
+    """MiniCPM3's absorbed decode through the serve loop: in f32 within
+    2e-3; in the config's dtype, bf16 (the reduced config's 1-D norms keep
+    their input's type, so every product rounds to bf16), within 5e-2, the
+    bf16 bound of tests/test_torch_{flash_attention,mla}.py: the logits
+    near 4 differ by up to 1.5 of their bf16 steps (0.0234), bf16
+    rounding in another order, as in the bf16 Mamba2 case."""
+    _serve_loop_matches_jax("minicpm3-4b", tol=TOL if dtype == "float32" else 5e-2,
+                            dtype=dtype)
+
+
+def test_serve_cli_on_cpu_minicpm3():
+    """``python -m repro_torch.launch.serve --arch minicpm3-4b --device cpu``
+    as README gives it: the reduced MiniCPM3 in bf16, MLA decode."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", "minicpm3-4b", "--batch", "2", "--prompt-len", "8", "--gen", "4"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("12 steps in ") and lines[0].endswith(" tok/s")
+    assert lines[1] == "arch=minicpm3-4b reduced=True batch=2"
+    rows = [ln.strip(" []").split() for ln in lines[3:5]]
+    assert [len(r) for r in rows] == [4, 4]
 
 
 def test_serve_cli_on_cpu_mixtral():
