@@ -19,8 +19,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      sequence, a ragged T, T = 1 and Jamba-1.5-Large's 1 x 4096 x 256
      heads, also against the step-by-step ``ssd_ref``; flash also at
      Mixtral-8x7B's 1 x 32 x 8 x 8192 x 128 in bf16 with its window of
-     4096, DBRX's 1 x 48 x 8 x 4096 x 128 and Jamba's 1 x 64 x 8 x 4096 x
-     128; dedup and the update also at phase 13's shapes, the
+     4096, DBRX's 1 x 48 x 8 x 4096 x 128, Jamba's 1 x 64 x 8 x 4096 x
+     128, Whisper-large-v3's decoder self-attention 4 x 20 x 20 x 448 x 64
+     and LLaVA-NeXT-Mistral-7B's prefill 2 x 32 x 8 x 4096 x 128; dedup
+     and the update also at phase 13's shapes, the
      5,632-slot T5 flush and the 1,280-slot relation apply), with its
      time, the plain version's time, one PyTorch
      library call's time as a yardstick where one computes the same
@@ -44,7 +46,14 @@ Phases, each fatal on failure (exit code 1, no result line):
      MiniCPM3-4B at full width cut to 2 layers in f32, a (1, 256) prefill
      on the card and on the CPU (logits within 2e-3 x max(1, max|logit|),
      no kernel launch), and the card's absorbed decode of the first 32
-     tokens against its prefill under the same bound;
+     tokens against its prefill under the same bound; Whisper-large-v3 at
+     full width cut to 2 encoder and 2 decoder layers in f32, a prefill on
+     (2, 64) tokens and (2, 1500, 1280) frames on the card and on the CPU,
+     then 8 teacher-forced decode steps on cross caches filled from the
+     encoder, card vs CPU and against the prefill; LLaVA-NeXT-Mistral-7B
+     cut to 2 layers, a (2, 128) prefill whose first 64 positions are
+     patch embeddings, card vs CPU (each within 2e-3 x max(1, max|logit|),
+     one flash launch a decoder layer, none in decode);
   5. TransE_l2 path: ``python -m repro_torch.launch.train --dataset fb15k
      --model transe_l2`` (14,951 x 400 entities, batch 1024, 256 joint
      negatives, T5 deferred update on) for 200 steps; the loss must fall and
@@ -180,6 +189,36 @@ Phases, each fatal on failure (exit code 1, no result line):
      teacher-forced logits at the 32 prompt positions against the f32
      prefill, every token within 2e-3 x max(1, max|logit|); decode tokens/s
      with the card synchronised and the cache bytes a token.
+ 21. Whisper prefill: Whisper-large-v3 at all 32 + 32 layers and full
+     width, weights drawn on the card from seed 0, in bf16, on (4, 448)
+     decoder tokens (its published text context) and (4, 1500, 1280)
+     encoder frames from numpy seed 0 through ``build_prefill_step(model,
+     use_flash=True)``: exactly 32 flash launches a forward and nothing
+     else (the encoder and cross-attention take the chunked route, as in
+     JAX), finite logits, the chunked route's logits beside them, the f32
+     forward's distance from the bf16 one; forward ms, decoder tokens/s,
+     the device time split into the encoder, flash, the chunked
+     cross-attention, the decoder's GEMMs and the rest; the peak memory.
+ 22. Whisper serve: ``repro_torch.launch.serve.generate`` at batch 4, 32 +
+     16 tokens, against zero cross caches as JAX's serve decodes: finite
+     logits, no kernel launch; decode tokens/s, the cache bytes a token
+     and the cross cache's fixed bytes a sequence; in f32, the
+     teacher-forced decode on cross caches filled from the f32 encoder
+     against the f32 prefill, every token within 2e-3 x max(1,
+     max|logit|), at full depth with the layers kept apart (the served,
+     stacked weights are chaotic under JAX's init: their reading is
+     printed beside the f32 chunked-vs-flash prefill's;
+     ``run_frontend_serve`` says why).
+ 23. LLaVA prefill: LLaVA-NeXT-Mistral-7B at all 32 layers, bf16, on (2,
+     4096) tokens whose first 2,880 positions are patch embeddings (one
+     anyres image and its text): exactly 32 flash launches a forward,
+     finite logits, other logits when the patches change, the f32
+     forward's distance; forward ms, tokens/s, device time split into
+     flash, GEMMs and the rest; the peak memory.
+ 24. LLaVA serve: ``generate`` at batch 4, 32 + 16 (tokens only, as JAX's
+     decode): no launch, finite logits; decode tokens/s; the f32
+     teacher-forced decode against the f32 prefill within the plain bound,
+     as phase 22 holds it.
 
 The routing rule, for every comparison that involves MoE layers: a token
 whose top-k expert set differs between the two runs in any MoE layer sits
@@ -256,6 +295,8 @@ FLASH_SHAPES = {
     "mixtral_prefill_bf16": (1, 32, 8, 8192, 8192, 128, 4096, 0, "bfloat16"),
     "dbrx_prefill_bf16": (1, 48, 8, 4096, 4096, 128, 0, 0, "bfloat16"),
     "jamba_prefill_bf16": (1, 64, 8, 4096, 4096, 128, 0, 0, "bfloat16"),
+    "whisper_decoder_bf16": (4, 20, 20, 448, 448, 64, 0, 0, "bfloat16"),
+    "llava_prefill_bf16": (2, 32, 8, 4096, 4096, 128, 0, 0, "bfloat16"),
 }
 QWEN = "qwen1.5-0.5b"
 PREFILL_SHAPE = (4, 2048)
@@ -283,6 +324,13 @@ MOE_SERVE = (4, 32, 16)  # batch, prompt tokens, generated tokens
 MINICPM = "minicpm3-4b"  # phases 19-20: all 62 layers at full width (MLA)
 MLA_TOKENS = (4, 2048)
 MLA_SERVE = (4, 32, 16)
+# phases 21-24: all layers at full width; Whisper's decoder context is its
+# published n_text_ctx, 448; LLaVA's prompt is one anyres image (2,880 patch
+# positions) and its text
+WHISPER, LLAVA = "whisper-large-v3", "llava-next-mistral-7b"
+WHISPER_TOKENS = (4, 448)
+LLAVA_TOKENS = (2, 4096)
+FRONTEND_SERVE = (4, 32, 16)
 # the routing rule's largest share of tokens whose top-k expert set differs
 ROUTE_TOL_F32 = 1e-3
 # at full width, the share of tokens two f32 runs must keep within 2e-3 x
@@ -355,8 +403,8 @@ def _self_device_us(evt) -> float:
     return float(evt.self_device_time_total)
 
 
-def trace_by_kernel(torch, fn, reps=1):
-    """{kernel: device us} of ``reps`` calls of ``fn``, traced by
+def trace_events(torch, fn, reps=1):
+    """{kernel: (device us, events)} of ``reps`` calls of ``fn``, traced by
     torch.profiler (CUPTI). On this card a trace now and then comes back
     holding no device event at all; such a trace is taken again, up to
     three times, and then the run fails."""
@@ -368,7 +416,7 @@ def trace_by_kernel(torch, fn, reps=1):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kern = {e.key: _self_device_us(e) for e in prof.key_averages()
+        kern = {e.key: (_self_device_us(e), e.count) for e in prof.key_averages()
                 if _self_device_us(e) > 0}
         if kern:
             return kern
@@ -376,14 +424,22 @@ def trace_by_kernel(torch, fn, reps=1):
     raise SmokeFailure("torch.profiler saw no device time in three traces")
 
 
+def trace_by_kernel(torch, fn, reps=1):
+    """{kernel: device us} of ``reps`` calls of ``fn`` (``trace_events``)."""
+    return {k: us for k, (us, _) in trace_events(torch, fn, reps).items()}
+
+
 def device_ms(torch, fn, reps=50, warmup=5):
     """Device time of one call of ``fn``: the kernels' own durations, traced
-    by torch.profiler (CUPTI) over ``reps`` calls, summed, divided by
-    ``reps``. Inputs stay warm in L2, as on the training path, where each
-    kernel reads what the step just wrote."""
+    by torch.profiler (CUPTI) over ``reps`` calls. Inputs stay warm in L2,
+    as on the training path, where each kernel reads what the step just
+    wrote. A trace may hold fewer of a kernel's launches than ran (PERF.md
+    §7), so each kernel counts the mean of the launches it holds, times
+    its launches a call (at least one)."""
     for _ in range(warmup):
         fn()
-    return sum(trace_by_kernel(torch, fn, reps).values()) / reps / 1e3
+    return sum(us / n * max(1, round(n / reps))
+               for us, n in trace_events(torch, fn, reps).values()) / 1e3
 
 
 def timings(torch, kernel, plain, library, reps=50, plain_reps=20):
@@ -2511,12 +2567,17 @@ def moe_model(torch, dev, arch, n_layers=None):
         kinds = sorted(set(kinds))
     ffn = (f"{cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.d_ff}"
            if cfg.n_experts else f"d_ff {cfg.d_ff}")
-    mla = (f", MLA q_lora {cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} rope "
-           f"{cfg.rope_head_dim}" if cfg.attention.value == "mla" else "")
+    extra = (f", MLA q_lora {cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} rope "
+             f"{cfg.rope_head_dim}" if cfg.attention.value == "mla" else "")
+    if cfg.enc_dec:
+        extra += (f", encoder of {cfg.n_encoder_layers} layers over {cfg.encoder_ctx} "
+                  f"frames, cross-attention in every decoder layer")
+    if cfg.n_frontend_tokens:
+        extra += f", {cfg.n_frontend_tokens} patch positions"
     print(f"  {cfg.name} at {cfg.n_layers} of {get_arch(arch).n_layers} layers "
           f"({kinds}): "
           f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} (kv "
-          f"{cfg.n_kv_heads}){mla}, {ffn}, window "
+          f"{cfg.n_kv_heads}){extra}, {ffn}, window "
           f"{cfg.window if cfg.attention.value == 'swa' else 0}, vocab {cfg.vocab_size}; "
           f"{n / 1e9:.2f} B parameters, param_dtype {cfg.param_dtype}, dtype "
           f"{cfg.dtype}; drawn on the card and cast in {init_s:.1f} s")
@@ -2823,24 +2884,12 @@ def check_mla_agreement(torch, np, dev):
           f"prefill) logits disagree at the 2-layer cut")
 
 
-def mla_attention_split(torch, dev, cfg, B, T, reps=3):
-    """Device ms of one layer's chunked attention (``_sdpa_chunked`` at the
-    MLA prefill's shapes: q and k of hd + rd, v of hd, causal, in the
-    config's dtype), traced alone: (its GEMMs, the rest: the elementwise
-    passes over the (B, 512, H, T) f32 score chunks and the casts). The
+def traced_alone(torch, label, fn, reps=3):
+    """(device ms, of which GEMMs) of one call of ``fn``, traced alone. The
     call keeps the card busy, so its CUDA-event time is its device time: a
     trace whose kernels sum to less than 90% of it has dropped events (as
     torch.profiler now and then does) and is taken again, up to three
     times."""
-    from repro_torch.models.attention import _sdpa_chunked
-    from repro_torch.models.layers import torch_dtype
-
-    dt = torch_dtype(cfg.dtype)
-    g = torch.Generator(device=dev).manual_seed(2)
-    H, dqk = cfg.n_heads, cfg.head_dim + cfg.rope_head_dim
-    q, k = (torch.randn(B, T, H, dqk, generator=g, device=dev).to(dt) for _ in range(2))
-    v = torch.randn(B, T, H, cfg.head_dim, generator=g, device=dev).to(dt)
-    fn = lambda: _sdpa_chunked(q, k, v, causal=True, window=0, q_offset=0)  # noqa: E731
     ev = event_ms(torch, fn, reps=reps, warmup=1)
     for _ in range(3):
         kern = trace_by_kernel(torch, fn, reps)
@@ -2848,12 +2897,40 @@ def mla_attention_split(torch, dev, cfg, B, T, reps=3):
         if total >= 0.9 * ev:
             gemm = sum(us for key, us in kern.items()
                        if any(w in key for w in ("nvjet", "gemm", "cutlass"))) / 1e3 / reps
-            print(f"  one layer's chunked attention alone: {ev:.2f} ms by CUDA events, "
-                  f"{total:.2f} ms traced (GEMMs {gemm:.2f} ms)")
-            return gemm, total - gemm
-        print(f"  (the trace of one layer's attention holds {total:.2f} ms of its "
-              f"{ev:.2f} ms: events dropped; traced again)")
-    raise SmokeFailure("three traces of the chunked attention dropped events")
+            print(f"  {label} alone: {ev:.2f} ms by CUDA events, {total:.2f} ms traced "
+                  f"(GEMMs {gemm:.2f} ms)")
+            return total, gemm
+        print(f"  (the trace of {label} holds {total:.2f} ms of its {ev:.2f} ms: "
+              f"events dropped; traced again)")
+    raise SmokeFailure(f"three traces of {label} dropped events")
+
+
+def chunked_alone(torch, dev, dt, q_shape, kv_shape, dv, causal, label, reps=3):
+    """Device ms of one ``_sdpa_chunked`` call on random q (``q_shape``), k
+    (``kv_shape``) and v (``kv_shape`` with head dim ``dv``) in ``dt``,
+    traced alone: (its GEMMs, the rest: the elementwise passes over the f32
+    score chunks and the casts)."""
+    from repro_torch.models.attention import _sdpa_chunked
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(*q_shape, generator=g, device=dev).to(dt)
+    k = torch.randn(*kv_shape, generator=g, device=dev).to(dt)
+    v = torch.randn(*kv_shape[:-1], dv, generator=g, device=dev).to(dt)
+    total, gemm = traced_alone(torch, label, lambda: _sdpa_chunked(
+        q, k, v, causal=causal, window=0, q_offset=0), reps)
+    return gemm, total - gemm
+
+
+def mla_attention_split(torch, dev, cfg, B, T, reps=3):
+    """Device ms of one layer's chunked attention (``_sdpa_chunked`` at the
+    MLA prefill's shapes: q and k of hd + rd, v of hd, causal, in the
+    config's dtype), traced alone: (its GEMMs, the rest)."""
+    from repro_torch.models.layers import torch_dtype
+
+    H, dqk = cfg.n_heads, cfg.head_dim + cfg.rope_head_dim
+    return chunked_alone(torch, dev, torch_dtype(cfg.dtype), (B, T, H, dqk),
+                         (B, T, H, dqk), cfg.head_dim, True,
+                         "one layer's chunked attention", reps)
 
 
 def run_mla_prefill(torch, np, dev, reps=3):
@@ -3000,6 +3077,358 @@ def run_mla_serve(torch, np, dev):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phases 21-24: Whisper-large-v3 and LLaVA-NeXT-Mistral-7B, full width and depth
+# ---------------------------------------------------------------------------
+def frontend_inputs(np, cfg, B, T, dev, seed=0, nf=None):
+    """Prompt tokens (B, T) from numpy seed ``seed``, then Whisper's encoder
+    frames (B, encoder_ctx, d_model) or LLaVA's patch embeddings (B, nf,
+    d_model; nf = min(n_frontend_tokens, T) by default) from the same
+    generator, f32, on ``dev``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    inputs = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T)),
+                                        device=dev)}
+    if cfg.enc_dec:
+        shape, key = (B, cfg.encoder_ctx, cfg.d_model), "enc_frames"
+    else:
+        nf = min(cfg.n_frontend_tokens, T) if nf is None else nf
+        shape, key = (B, nf, cfg.d_model), "patch_embeds"
+    inputs[key] = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev)
+    return inputs
+
+
+def fill_cross(model, params, caches, frames):
+    """Whisper's cross caches from the encoder's output, in the cache dtype:
+    ``enc_out @ xattn.wk`` and ``@ xattn.wv`` of every decoder layer, as
+    JAX's tests/test_models.py ``_prefill_cross`` fills them (the package
+    has no cross-cache prefill, in JAX or here)."""
+    cfg = model.cfg
+    cast = model.cast(params)
+    enc = model._encode(cast, frames)
+    B = frames.shape[0]
+    for p, c in zip(model._layers(cast["layers"]), model._layers(caches)):
+        c["xk"].copy_((enc @ p["xattn"]["wk"]).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim))
+        c["xv"].copy_((enc @ p["xattn"]["wv"]).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim))
+    return caches
+
+
+def teacher_forced(model, params, caches, tokens):
+    """The decode logits (B, T, V) of ``tokens`` (B, T) fed one a step into
+    ``caches`` through ``build_serve_step``."""
+    import torch
+
+    from repro_torch.models.steps import build_serve_step
+
+    step = build_serve_step(model)
+    return torch.cat([step(params, caches, tokens[:, i:i + 1], i)[0]
+                      for i in range(tokens.shape[1])], dim=1)
+
+
+def check_frontend_agreement(torch, np, dev, arch):
+    """Phase 4's Whisper and LLaVA rows: ``arch`` at full width cut to 2
+    layers (Whisper 2 encoder and 2 decoder layers), kept apart
+    (``scan_layers=False``; ``check_lm_agreement`` says why), in f32. Whisper:
+    a prefill on (2, 64) tokens and (2, 1500, 1280) frames on the card and
+    on the CPU from the same weights, then 8 teacher-forced decode steps
+    with the cross caches filled from each device's encoder output, card
+    against CPU and, on the card, against the card's prefill. LLaVA: a
+    (2, 128) prefill whose first 64 positions are patch embeddings. Each
+    within 2e-3 x max(1, max|logit|); one flash launch a decoder layer,
+    none for the encoder, cross-attention or decode."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model, routing_rule
+
+    cut = dict(n_layers=2, dtype="float32", scan_layers=False)
+    if arch == WHISPER:
+        cut["n_encoder_layers"] = 2
+    cfg = dataclasses.replace(get_arch(arch), **cut)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1))
+    card = tree_map(lambda t: t.to(dev), params)
+    T = 64 if cfg.enc_dec else 128
+    inputs = frontend_inputs(np, cfg, 2, T, "cpu", seed=1, nf=None if cfg.enc_dec else 64)
+    prefill = build_prefill_step(model, use_flash=True)
+    build.reset_launches()
+    got = prefill(card, {k: v.to(dev) for k, v in inputs.items()})
+    _sync(torch, dev)
+    n = dict(build.LAUNCHES)
+    want = prefill(params, inputs)
+    a = routing_rule(got, want)
+    line = (f"  {arch} 2-layer full-width f32 prefill {tuple(inputs['tokens'].shape)}"
+            + (f" with {tuple(inputs['enc_frames'].shape)} frames" if cfg.enc_dec
+               else f", {inputs['patch_embeds'].shape[1]} patch positions")
+            + f": {n['flash_attention']} flash launches; card vs CPU logits max_abs_err "
+            f"{a['max_other']:.3e} (bound {a['bound']:.3e})")
+    ok = (n["flash_attention"] == cfg.n_layers and sum(n.values()) == cfg.n_layers
+          and got.shape == want.shape and a["max_other"] <= a["bound"])
+    if cfg.enc_dec:
+        steps = 8
+        build.reset_launches()
+        dec = teacher_forced(model, card, fill_cross(
+            model, card, model.init_caches(2, steps, device=dev),
+            inputs["enc_frames"].to(dev)), inputs["tokens"][:, :steps].to(dev))
+        _sync(torch, dev)
+        n_dec = sum(build.LAUNCHES.values())
+        dec_cpu = teacher_forced(model, params, fill_cross(
+            model, params, model.init_caches(2, steps), inputs["enc_frames"]),
+            inputs["tokens"][:, :steps])
+        d = routing_rule(dec, dec_cpu)
+        dp = routing_rule(dec, got[:, :steps])
+        line += (f"; {steps} decode steps on filled cross caches ({n_dec} launches): "
+                 f"card vs CPU {d['max_other']:.3e} (bound {d['bound']:.3e}), card "
+                 f"decode vs card prefill {dp['max_other']:.3e} (bound {dp['bound']:.3e})")
+        ok = ok and n_dec == 0 and d["max_other"] <= d["bound"] \
+            and dp["max_other"] <= dp["bound"]
+    print(line)
+    check(ok, f"{arch}: card and CPU (or decode and prefill) logits disagree at the "
+          f"2-layer cut")
+
+
+def _cache_bytes(model, B, seq, dev):
+    """(bytes a token of the self-attention caches, bytes a sequence of the
+    cross caches) of ``model.init_caches(B, seq)``."""
+    per_token = cross = 0
+    for path, t in _named_leaves(model.init_caches(B, seq, device=dev)):
+        n = t.numel() * t.element_size()
+        if path[-1] in ("xk", "xv"):
+            cross += n / B
+        else:
+            per_token += n / (B * seq)
+    return per_token, cross
+
+
+def _named_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _named_leaves(v, path + (k,))]
+    return [(path, tree)]
+
+
+def run_frontend_prefill(torch, np, dev, arch, reps=3):
+    """Phase 21 (Whisper) and phase 23 (LLaVA): the model at full width and
+    full depth in bf16 through ``build_prefill_step(model, use_flash=True)``
+    on WHISPER_TOKENS decoder tokens and (4, 1500, 1280) encoder frames, or
+    on LLAVA_TOKENS tokens whose first 2,880 positions are patch
+    embeddings (2, 2880, 4096), all from numpy seed 0: exactly one flash
+    launch a decoder layer and nothing else (the encoder's non-causal
+    attention and cross-attention take the chunked route, as in JAX),
+    finite bf16 logits of the padded vocab. Whisper: the chunked route's
+    logits beside it. LLaVA: the patches plus one give other logits
+    (JAX's ``test_vlm_patch_embedding_injection``). Both: the f32 forward
+    from the same weights and its distance from the bf16 logits (printed);
+    forward ms, tokens/s (Whisper's: decoder tokens) and the device time
+    split: Whisper into the encoder (traced alone), flash, the chunked
+    cross-attention (one layer's ``_sdpa_chunked`` traced alone, times 32),
+    the decoder's GEMMs and the rest; LLaVA into flash, GEMMs and the rest;
+    the peak device memory. Returns (launches, summary)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model, routing_rule
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model, params, cast, init_s = moe_model(torch, dev, arch,
+                                            n_layers=get_arch(arch).n_layers)
+    cfg = model.cfg
+    B, T = WHISPER_TOKENS if cfg.enc_dec else LLAVA_TOKENS
+    inputs = frontend_inputs(np, cfg, B, T, dev)
+    prefill = build_prefill_step(model, use_flash=True)
+    build.reset_launches()
+    logits = prefill(cast, inputs)
+    _sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    n = launches["flash_attention"]
+    print(f"  prefill {(B, T)}: logits {tuple(logits.shape)} {logits.dtype}, {n} flash "
+          f"launches, {sum(launches.values()) - n} others")
+    check(n == cfg.n_layers and sum(launches.values()) == n,
+          f"{arch}: launches {launches} in one forward, not {cfg.n_layers} flash")
+    check(tuple(logits.shape) == (B, T, model.padded_vocab)
+          and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+          f"{arch}: prefill logits not finite bf16 of the padded vocab")
+    summary = dict(layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+                   params=sum(t.numel() for t in _leaves(params)), tokens=(B, T),
+                   init_s=init_s)
+    if cfg.enc_dec:
+        chunked = build_prefill_step(model)(cast, inputs)
+        d = routing_rule(logits, chunked)
+        _print_distance("bf16 flash vs chunked route", d)
+        summary["flash_vs_chunked"] = d
+        del chunked
+    else:
+        moved = prefill(cast, {**inputs, "patch_embeds": inputs["patch_embeds"] + 1.0})
+        diff = (moved.float() - logits.float()).abs().amax(-1)
+        summary.update(patch_change_max=float(diff.max()),
+                       patch_change_positions=float((diff > 0).float().mean()))
+        print(f"  the patches plus one: logits move by up to {summary['patch_change_max']:.3f}"
+              f", at {summary['patch_change_positions']:.2%} of positions")
+        check(summary["patch_change_max"] > 1e-3, f"{arch}: the patches change nothing")
+        del moved, diff
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    truth = build_prefill_step(model32, use_flash=True)(params, inputs)
+    _sync(torch, dev)
+    dist32 = routing_rule(logits, truth)
+    dist32["argmax_equal"] = float((logits.argmax(-1) == truth.argmax(-1)).float().mean())
+    _print_distance("bf16 forward vs the f32 forward of the same weights", dist32)
+    print(f"    argmax equal at {dist32['argmax_equal']:.2%} of tokens")
+    check(bool(torch.isfinite(truth).all()), f"{arch}: f32 logits not finite")
+    summary["bf16_from_f32"] = dist32
+    del truth, logits
+    fwd_ms, dev_ms, split, top = time_prefill(torch, dev, lambda: prefill(cast, inputs),
+                                              reps)
+    summary.update(forward_ms=fwd_ms, prefill_tokens_per_s=B * T / fwd_ms * 1e3,
+                   device_ms=dev_ms, device_busy=dev_ms / fwd_ms, flash_ms=split["flash"])
+    if cfg.enc_dec:
+        frames = inputs["enc_frames"]
+        enc_ms, enc_gemm = traced_alone(torch, "the encoder", lambda: model._encode(
+            cast, frames), reps)
+        H, hd, S = cfg.n_heads, cfg.head_dim, cfg.encoder_ctx
+        x_gemm, x_rest = chunked_alone(torch, dev, model.dtype, (B, T, H, hd),
+                                       (B, S, cfg.n_kv_heads, hd), hd, False,
+                                       "one layer's chunked cross-attention", reps)
+        x_gemm, x_rest = x_gemm * cfg.n_layers, x_rest * cfg.n_layers
+        dec_gemm = split["gemm"] - enc_gemm - x_gemm
+        rest = dev_ms - enc_ms - split["flash"] - x_gemm - x_rest - dec_gemm
+        parts = dict(encoder=enc_ms, flash=split["flash"], cross_chunked=x_gemm + x_rest,
+                     decoder_gemm=dec_gemm, rest=rest)
+        summary.update(encoder_ms=enc_ms, encoder_gemm_ms=enc_gemm,
+                       cross_chunked_ms=x_gemm + x_rest, cross_gemm_ms=x_gemm,
+                       decoder_gemm_ms=dec_gemm, rest_ms=rest)
+    else:
+        parts = dict(flash=split["flash"], gemm=split["gemm"], rest=split["other"])
+        summary.update(gemm_ms=split["gemm"], rest_ms=split["other"])
+    what = "decoder tokens/s" if cfg.enc_dec else "prefill tokens/s"
+    print(f"  forward {fwd_ms:.2f} ms ({B * T / fwd_ms * 1e3:.0f} {what}); device "
+          f"{dev_ms:.2f} ms: " + ", ".join(f"{k} {v:.2f} ms ({v / dev_ms:.1%})"
+                                           for k, v in parts.items()))
+    for key, us in top:
+        print(f"    {us / 1e3:9.3f} ms  {key[:100]}")
+    summary["peak_gb"] = _peak_gb(torch, dev)
+    print(f"  peak device memory {summary['peak_gb']:.1f} GB")
+    return launches, summary
+
+
+def f32_decode_vs_prefill(torch, model32, params, inputs):
+    """(the teacher-forced decode logits of ``inputs["tokens"]`` against the
+    f32 flash prefill of them, under ``routing_rule``; the chunked f32
+    prefill against the flash one, the distance that the order of the sums
+    alone makes). Whisper's cross caches are filled from the f32 encoder
+    output of ``inputs["enc_frames"]``."""
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import routing_rule
+
+    tok = inputs["tokens"]
+    caches = model32.init_caches(*tok.shape, device=tok.device)
+    pt = {"tokens": tok}
+    if model32.cfg.enc_dec:
+        caches = fill_cross(model32, params, caches, inputs["enc_frames"])
+        pt["enc_frames"] = inputs["enc_frames"]
+    decoded = teacher_forced(model32, params, caches, tok)
+    del caches
+    truth = build_prefill_step(model32, use_flash=True)(params, pt)
+    witness = routing_rule(build_prefill_step(model32)(params, pt), truth)
+    return routing_rule(decoded, truth), witness
+
+
+def run_frontend_serve(torch, np, dev, arch):
+    """Phase 22 (Whisper) and phase 24 (LLaVA): the model at full depth drawn
+    again from seed 0, ``repro_torch.launch.serve.generate`` (the CLI's
+    loop, with its ThroughputHook) at FRONTEND_SERVE in bf16: finite
+    logits, no kernel launch (decode is plain PyTorch, as JAX's is jnp);
+    Whisper decodes against zero cross caches, as JAX's serve does, and
+    LLaVA takes tokens only. Then decode tokens/s with the card
+    synchronised, and the cache bytes a token (Whisper's fixed cross cache
+    beside them).
+
+    In f32, the teacher-forced decode logits at the 32 prompt positions
+    against the f32 flash prefill of the prompt (Whisper's on (4, 1500,
+    1280) frames drawn after the prompt from numpy seed 0, its cross caches
+    filled from the f32 encoder output of them), every token within 2e-3 x
+    max(1, max|logit|), at full depth with the layers kept apart
+    (``scan_layers=False``), whose JAX init draws each matrix at 1 /
+    sqrt(its input width). With the served, stacked weights ``fan_in``
+    reads the layer count, 32: every matrix at std 0.177, one-hot
+    attention, and a forward so chaotic that the order of the sums alone
+    moves the logits past that bound; their reading is printed beside the
+    f32 chunked-vs-flash prefill's, which shows the chaos (phase 4 holds
+    the stacked-free 2-layer cuts to the plain bound too). Returns
+    (launches, summary)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import ThroughputHook
+    from repro_torch.models.transformer import build_model
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    full = get_arch(arch)
+    model, params, cast, _ = moe_model(torch, dev, arch, n_layers=full.n_layers)
+    cfg = model.cfg
+    B, T, G = FRONTEND_SERVE
+    inputs = frontend_inputs(np, cfg, B, T, dev)
+    prompt = inputs["tokens"].cpu().numpy()
+    lines = []
+    build.reset_launches()
+    gen, logits = serve.generate(model, cast, prompt, G,
+                                 hooks=[ThroughputHook(B, "tok", lines.append)])
+    _sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    rate = re.findall(r"^(\d+) steps in (\S+)s -> (\S+) tok/s$", "\n".join(lines), re.M)
+    print(f"  generate {(B, T, G)}: {lines[0] if lines else 'no throughput line'}")
+    check(len(rate) == 1 and int(rate[0][0]) == T + G, "no throughput line")
+    check(sum(launches.values()) == 0, f"{arch}: the decode path launched {launches}")
+    check(gen.shape == (B, G) and len(logits) == T + G
+          and all(bool(torch.isfinite(lg).all()) for lg in logits),
+          f"{arch}: serve did not generate finite ({B}, {G}) tokens")
+    del logits
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    again, _ = serve.generate(model, cast, prompt, G)
+    _sync(torch, dev)
+    loop_s = time.perf_counter() - t0
+    per_token, cross = _cache_bytes(model, B, T + G, dev)
+    fixed = (f", and {cross / 1e6:.2f} MB a sequence of cross cache ({cfg.n_layers} "
+             f"layers x {cfg.encoder_ctx} frames)" if cfg.enc_dec else "")
+    print(f"  synchronised loop of {T + G} steps {loop_s * 1e3:.1f} ms ({loop_s / (T + G) * 1e3:.2f} "
+          f"ms a step, {B * (T + G) / loop_s:.0f} tok/s); the same tokens as the first "
+          f"run's: {bool(np.array_equal(again, gen))}; cache {per_token:.0f} bytes a "
+          f"token{fixed}")
+    summary = dict(cli_tok_per_s=float(rate[0][2]), step_ms=loop_s / (T + G) * 1e3,
+                   decode_tok_per_s=B * (T + G) / loop_s, cache_bytes_per_token=per_token,
+                   cross_cache_bytes_per_sequence=cross)
+
+    what = "f32 teacher-forced decode vs f32 prefill of the prompt" + (
+        " (cross caches from the f32 encoder)" if cfg.enc_dec else "")
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    a, witness = f32_decode_vs_prefill(torch, model32, params, inputs)
+    _print_distance(f"stacked weights, {what}", a)
+    _print_distance("  beside it, the f32 chunked prefill vs the flash prefill", witness)
+    summary.update(stacked_f32_decode_vs_prefill=a, stacked_f32_chunked_vs_flash=witness)
+    del params, cast, model
+    free_card(torch)
+    apart = build_model(dataclasses.replace(full, dtype="float32", scan_layers=False))
+    params = apart.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    a, witness = f32_decode_vs_prefill(torch, apart, params, inputs)
+    _print_distance(f"layers kept apart, {what}", a)
+    _print_distance("  beside it, the f32 chunked prefill vs the flash prefill", witness)
+    check(a["max_other"] <= a["bound"], f"{arch}: f32 teacher-forced decode and prefill "
+          f"disagree beyond 2e-3 x max(1, max|logit|)")
+    summary.update(f32_decode_vs_prefill=a, f32_chunked_vs_flash=witness,
+                   peak_gb=_peak_gb(torch, dev))
+    print(f"  peak device memory {summary['peak_gb']:.1f} GB")
+    return launches, summary
+
+
 T_START = time.perf_counter()
 
 
@@ -3071,7 +3500,8 @@ def main() -> int:
 
     print(f"  ({elapsed()} since the start)")
     print("== 4. card vs CPU: three dim-400 steps at batch 256, k 64; 2-layer "
-          "Qwen, Mamba2 and MiniCPM3 prefills; reduced Mixtral, DBRX and Jamba prefills")
+          "Qwen, Mamba2, MiniCPM3, Whisper and LLaVA prefills; reduced Mixtral, DBRX "
+          "and Jamba prefills")
     for model in ("transe_l2", "transe_l1", "distmult"):
         check_agreement(torch, np, dev, model)
     # RESCAL diverges at FB15k's lr 0.25 (loss 1.39 -> 18.1 in three steps)
@@ -3087,6 +3517,8 @@ def main() -> int:
     for arch in (MIXTRAL, DBRX, JAMBA):
         check_moe_agreement(torch, np, dev, arch)
     check_mla_agreement(torch, np, dev)
+    for arch in (WHISPER, LLAVA):
+        check_frontend_agreement(torch, np, dev, arch)
 
     print(f"  ({elapsed()} since the start)")
     print(f"== 5. TransE_l2 path: FB15k, {MAIN_PATH_STEPS} steps")
@@ -3185,6 +3617,32 @@ def main() -> int:
     mla_serve_launches, mla_serve_path = run_mla_serve(torch, np, dev)
     free_card(torch)
 
+    print(f"  ({elapsed()} since the start)")
+    print(f"== 21. Whisper prefill: {WHISPER} at full width and depth, {WHISPER_TOKENS} "
+          f"decoder tokens and 1500 encoder frames, bf16, flash")
+    wh_pre_launches, wh_pre_path = run_frontend_prefill(torch, np, dev, WHISPER)
+    free_card(torch)
+
+    print(f"  ({elapsed()} since the start)")
+    print(f"== 22. Whisper serve: repro_torch.launch.serve.generate, {WHISPER} at full "
+          f"depth, batch {FRONTEND_SERVE[0]}, {FRONTEND_SERVE[1]} + {FRONTEND_SERVE[2]} "
+          f"tokens, zero cross caches")
+    wh_serve_launches, wh_serve_path = run_frontend_serve(torch, np, dev, WHISPER)
+    free_card(torch)
+
+    print(f"  ({elapsed()} since the start)")
+    print(f"== 23. LLaVA prefill: {LLAVA} at full width and depth, {LLAVA_TOKENS} tokens, "
+          f"the first 2880 patch embeddings, bf16, flash")
+    lv_pre_launches, lv_pre_path = run_frontend_prefill(torch, np, dev, LLAVA)
+    free_card(torch)
+
+    print(f"  ({elapsed()} since the start)")
+    print(f"== 24. LLaVA serve: repro_torch.launch.serve.generate, {LLAVA} at full "
+          f"depth, batch {FRONTEND_SERVE[0]}, {FRONTEND_SERVE[1]} + {FRONTEND_SERVE[2]} "
+          f"tokens")
+    lv_serve_launches, lv_serve_path = run_frontend_serve(torch, np, dev, LLAVA)
+    free_card(torch)
+
     launches_of = {"transe_l2": l2_launches, "transe_l1": l1_launches,
                    "distmult": dm_launches, "qwen_prefill": pre_launches,
                    "qwen_serve": serve_launches, "mamba2_prefill": m_pre_launches,
@@ -3193,7 +3651,9 @@ def main() -> int:
                    "mixtral_prefill": mx_pre_launches, "dbrx_prefill": dbrx_pre_launches,
                    "jamba_prefill": jb_pre_launches, "mixtral_serve": mx_serve_launches,
                    "jamba_serve": jb_serve_launches, "minicpm3_prefill": mla_pre_launches,
-                   "minicpm3_serve": mla_serve_launches}
+                   "minicpm3_serve": mla_serve_launches,
+                   "whisper_prefill": wh_pre_launches, "whisper_serve": wh_serve_launches,
+                   "llava_prefill": lv_pre_launches, "llava_serve": lv_serve_launches}
     kernels = []
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches_of.items()}
@@ -3224,8 +3684,12 @@ def main() -> int:
                                 "jamba_prefill": jb_pre_path,
                                 "jamba_serve": jb_serve_path,
                                 "minicpm3_prefill": mla_pre_path,
-                                "minicpm3_serve": mla_serve_path}}))
-    print(f"chip_smoke: 20 phases in {elapsed()}")
+                                "minicpm3_serve": mla_serve_path,
+                                "whisper_prefill": wh_pre_path,
+                                "whisper_serve": wh_serve_path,
+                                "llava_prefill": lv_pre_path,
+                                "llava_serve": lv_serve_path}}))
+    print(f"chip_smoke: 24 phases in {elapsed()}")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

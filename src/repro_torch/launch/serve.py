@@ -23,7 +23,8 @@ config runs. ``--device`` defaults to cuda and raises without a GPU;
 kernel of the port: decode attention and the Mamba2 recurrence are plain
 PyTorch, as they are plain jnp in JAX. Batched prefill is
 ``models.steps.build_prefill_step(model, use_flash=True)``, through the
-flash kernel (attention) and the ssd_scan kernel (Mamba2).
+flash kernel (attention) and the ssd_scan kernel (Mamba2); Whisper's
+prefill also takes ``enc_frames`` and LLaVA's ``patch_embeds``.
 """
 
 from __future__ import annotations
@@ -59,7 +60,12 @@ def generate(model, params, tokens: np.ndarray, gen: int, hooks: Sequence = ()
     ``gen`` tokens. Returns the generated ids (B, gen) and the logits of
     every step (T + gen tensors of (B, 1, padded_vocab); step i's are the
     next-token logits after position i). The argmax runs over the padded
-    vocab, as in JAX. ``params`` may be the model's cast copy."""
+    vocab, as in JAX. ``params`` may be the model's cast copy.
+
+    Whisper's cross caches (``xk``/``xv``) stay zero, so its decoder
+    cross-attends to zero keys and values: a copy of JAX's serve, which
+    never fills them (it has no encoder input). LLaVA is fed tokens only,
+    as JAX's serve feeds it."""
     from repro_torch.launch.engine import run_loop
     from repro_torch.models.steps import build_serve_step
 

@@ -1,5 +1,6 @@
 """Attention mixers of the LM zoo: GQA / MHA, full or sliding-window, with
-an optional QKV bias, and MLA (Multi-head Latent Attention, MiniCPM3).
+an optional QKV bias, MLA (Multi-head Latent Attention, MiniCPM3), and
+the cross-attention of an encoder-decoder (Whisper).
 
 A port of the JAX package's models/attention.py. Paths:
   * ``attention_train``: full sequence. By default query-chunked
@@ -8,10 +9,16 @@ A port of the JAX package's models/attention.py. Paths:
     the hand-written kernel on the card (csrc/flash_attention.cu) and its
     plain version on the CPU. The JAX package takes that route only under a
     mesh (shard_map) and otherwise falls back to the chunked one; the port
-    has no mesh, so ``use_flash`` alone picks it (ROADMAP Queue C).
+    has no mesh, so ``use_flash`` alone picks it (ROADMAP Queue C). With
+    ``kv_src`` (B, S, D) it is cross-attention: k and v from ``kv_src``, no
+    rope, no mask, always the chunked route, as JAX's flash branch needs
+    ``causal and kv_src is None``. A non-causal self-attention (the
+    encoder) keeps its rope and takes the chunked route too.
   * ``attention_decode``: one token against a KV cache; SWA uses a ring
     cache of ``window`` slots. The port writes the cache in place where JAX
-    returns an updated copy (Queue C).
+    returns an updated copy (Queue C). ``cross_attention_decode``: one
+    token against the cross cache (``xk``/``xv`` of ``cache_defs(...,
+    cross_len)``), every key valid, no rope.
 
 MLA takes JAX's routes: ``_mla_train`` (the low-rank q and kv projections
 with their rmsnorms, rope on the rope parts, ``wkv_b`` into k_nope and v,
@@ -25,9 +32,6 @@ q_rope . k_rope`` in f32, scaled after the sum.
 
 Matmuls follow JAX's type promotion (``layers.matmul``): an f32 bias or
 residual turns the following products to f32.
-
-Cross-attention (Whisper) waits for ROADMAP Queue A10.3 and raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,18 +46,16 @@ from repro_torch.models.layers import ParamDef, matmul, rmsnorm, rope, torch_dty
 
 Params = Dict[str, torch.Tensor]
 
-CROSS_TODO = ("cross-attention (the Whisper decoder) is not yet ported to "
-              "repro_torch: ROADMAP Queue A10.3")
-
-
 def _window(cfg: ArchConfig) -> int:
     return cfg.window if cfg.attention == AttentionKind.SWA else 0
 
 
 # =========================================================================== defs
-def attn_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+def attn_defs(cfg: ArchConfig, cross: bool = False) -> Dict[str, ParamDef]:
+    """One layer's projections; ``cross`` (a decoder's cross-attention)
+    takes the GQA / MHA ones whatever the config's kind, as JAX's does."""
     d, hd, H, Hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    if cfg.attention == AttentionKind.MLA:
+    if cfg.attention == AttentionKind.MLA and not cross:
         qr, kvr, rd = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.rope_head_dim
         return {
             "wq_a": ParamDef((d, qr), init="fan_in"),
@@ -120,26 +122,28 @@ def attention_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
                     causal: bool = True, q_offset: int = 0,
                     kv_src: Optional[torch.Tensor] = None,
                     use_flash: bool = False) -> torch.Tensor:
-    """Self-attention of x (B, T, D). ``use_flash`` routes causal GQA
-    self-attention through ``flash_attention``; MLA takes the chunked
-    route whatever it says, as JAX's does."""
-    if kv_src is not None:
-        raise NotImplementedError(CROSS_TODO)
-    if cfg.attention == AttentionKind.MLA:
+    """Attention of x (B, T, D) to itself, or to ``kv_src`` (B, S, D).
+    ``use_flash`` routes causal GQA self-attention through
+    ``flash_attention``; MLA, the non-causal encoder and cross-attention
+    take the chunked route whatever it says, as JAX's do."""
+    if cfg.attention == AttentionKind.MLA and kv_src is None:
         return _mla_train(params, x, cfg, causal)
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_src is None else kv_src
+    S = src.shape[1]
     q = matmul(x, params["wq"]).reshape(B, T, H, hd)
-    k = matmul(x, params["wk"]).reshape(B, T, Hkv, hd)
-    v = matmul(x, params["wv"]).reshape(B, T, Hkv, hd)
+    k = matmul(src, params["wk"]).reshape(B, S, Hkv, hd)
+    v = matmul(src, params["wv"]).reshape(B, S, Hkv, hd)
     if "bq" in params:
         q = q + params["bq"].reshape(H, hd)
         k = k + params["bk"].reshape(Hkv, hd)
         v = v + params["bv"].reshape(Hkv, hd)
-    pos = torch.arange(T, device=x.device)
-    q = rope(q, pos + q_offset, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
+    if kv_src is None:  # self-attention: rope
+        q = rope(q, torch.arange(T, device=x.device) + q_offset, cfg.rope_theta)
+        k = rope(k, torch.arange(S, device=x.device), cfg.rope_theta)
     window = _window(cfg)
+    causal = causal and kv_src is None
     if use_flash and causal:
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                             causal=True, window=window, q_offset=q_offset)
@@ -177,10 +181,13 @@ def _mla_train(params: Params, x: torch.Tensor, cfg: ArchConfig, causal: bool
 
 
 # ================================================================== decode path
-def cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, ParamDef]:
+def cache_defs(cfg: ArchConfig, batch: int, seq: int, cross_len: int = 0
+               ) -> Dict[str, ParamDef]:
     """The decode cache of one attention layer, in the config's dtype: for
     MLA the latent ``c_kv`` and the shared ``k_rope`` of ``seq`` tokens;
-    else k and v, a ring of ``window`` slots for SWA, else ``seq`` slots."""
+    else k and v, a ring of ``window`` slots for SWA, else ``seq`` slots,
+    and with ``cross_len`` the cross cache ``xk``/``xv`` of that many
+    encoder positions."""
     dt = torch_dtype(cfg.dtype)
     if cfg.attention == AttentionKind.MLA:
         return {
@@ -190,10 +197,14 @@ def cache_defs(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, ParamDef]:
     Hkv, hd = cfg.n_kv_heads, cfg.head_dim
     W = _window(cfg)
     S = min(seq, W) if W else seq
-    return {
+    out = {
         "k": ParamDef((batch, S, Hkv, hd), init="zeros", dtype=dt),
         "v": ParamDef((batch, S, Hkv, hd), init="zeros", dtype=dt),
     }
+    if cross_len:
+        out["xk"] = ParamDef((batch, cross_len, Hkv, hd), init="zeros", dtype=dt)
+        out["xv"] = ParamDef((batch, cross_len, Hkv, hd), init="zeros", dtype=dt)
+    return out
 
 
 def attention_decode(params: Params, x1: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -245,6 +256,20 @@ def _decode_sdpa(q, k, v, valid):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def cross_attention_decode(params: Params, x1: torch.Tensor,
+                           cache: Dict[str, torch.Tensor], cfg: ArchConfig
+                           ) -> torch.Tensor:
+    """x1 (B, 1, D) against the whole cross cache (``xk``/``xv``, every key
+    valid): q with no rope and no bias, as JAX's ``cross_attention_decode``.
+    The cache is read, never written."""
+    B = x1.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = matmul(x1, params["wq"]).reshape(B, 1, H, hd)
+    valid = torch.ones(cache["xk"].shape[1], dtype=torch.bool, device=x1.device)
+    o = _decode_sdpa(q, cache["xk"], cache["xv"], valid)
+    return matmul(o.reshape(B, 1, H * hd), params["wo"])
 
 
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,20 @@
 """Architecture assembly of the LM zoo: decoders of attention or Mamba2
-layers with dense or Mixture-of-Experts FFNs.
+layers with dense or Mixture-of-Experts FFNs, an encoder-decoder, and a
+vision frontend.
 
-A port of the JAX package's models/transformer.py for the configs whose
-layers are (attention or Mamba2 mixer, dense FFN, MoE or none) with no
-encoder and no frontend: Qwen1.5-0.5B, H2O-Danube-1.8B (SWA), Minitron-4B,
-MiniCPM3-4B (MLA), Mamba2-2.7B (attention-free, no FFN), Mixtral-8x7B
-(SWA, MoE), DBRX (MoE) and Jamba-1.5-Large (Mamba2 and attention 7:1, MoE
-every other layer). The layer kinds follow JAX's ``_pattern`` and the
-stacking its ``_period``. ``build_model(cfg, grid=None)`` returns a
-``Model`` exposing
+A port of the JAX package's models/transformer.py for every config of the
+zoo: Qwen1.5-0.5B, H2O-Danube-1.8B (SWA), Minitron-4B, MiniCPM3-4B (MLA),
+Mamba2-2.7B (attention-free, no FFN), Mixtral-8x7B (SWA, MoE), DBRX (MoE),
+Jamba-1.5-Large (Mamba2 and attention 7:1, MoE every other layer),
+Whisper-large-v3 (encoder-decoder) and LLaVA-NeXT-Mistral-7B (patch
+embeddings over the leading positions). The layer kinds follow JAX's
+``_pattern`` and the stacking its ``_period``. ``build_model(cfg,
+grid=None)`` returns a ``Model`` exposing
 
     defs / init(gen, device) / cast(params)  parameters (JAX's tree layout)
     forward(params, inputs, use_flash)       logits for prefill
     hidden(params, inputs)                   final hidden states
+    embed(params, tokens, inputs)            token (and patch) embeddings
     cache_defs(batch, seq) / init_caches     decode caches
     decode_step(params, caches, token, index) -> (logits, caches)
 
@@ -46,10 +48,26 @@ FFN and the embeddings over ``model`` only as a layout, so the numbers are
 those of unsharded layers (a stated divergence: more memory a rank). The
 vocab pads to ``128 * S`` with S > 1, else to 8, as JAX's does.
 ``forward_routes`` gives the logits with each MoE layer's expert choices,
-which the routing rule compares. The Whisper encoder-decoder and the LLaVA
-frontend raise ``NotImplementedError`` at ``build_model``, naming their
-ROADMAP item. ``params_from_arrays`` / ``params_to_arrays`` carry weights
-between the JAX package (nested numpy arrays) and the port; with a grid,
+which the routing rule compares.
+
+Whisper (``enc_dec``): ``inputs["enc_frames"]`` (B, encoder_ctx, d_model),
+precomputed frame embeddings as in JAX (the audio frontend is a stub),
+go through the encoder once (``_encode``: rmsnorm, non-causal
+self-attention with rope, rmsnorm, the dense FFN; then ``enc_final_ln``;
+stacked under ``encoder`` with ``scan_layers``, else ``encoder/e{i}``);
+every decoder layer adds ``ln_x`` and cross-attention to the encoder
+output (``xattn``) between its mixer and its FFN, as JAX's
+``_apply_layer`` does. Neither the encoder nor cross-attention launches a
+kernel: JAX's flash branch needs causal self-attention. Its decode cache
+adds ``xk``/``xv`` of ``encoder_ctx`` positions a layer, which
+``decode_step`` reads; nothing in the package fills them (JAX's has no
+cross-cache prefill either), so serving decodes against zero caches, as
+JAX's serve does. LLaVA (``frontend == vision``): ``embed`` writes
+``inputs["patch_embeds"]`` (B, nf, d_model) over the first nf positions;
+decode feeds tokens only, as JAX's does.
+
+``params_from_arrays`` / ``params_to_arrays`` carry weights between the
+JAX package (nested numpy arrays) and the port; with a grid,
 ``params_from_arrays`` keeps this rank's slice of JAX's global arrays.
 """
 
@@ -73,19 +91,12 @@ Params = Dict[str, Any]
 
 
 def unported(cfg: ArchConfig) -> Optional[str]:
-    """Why ``cfg`` does not run in the port yet, or None."""
-    item = "A10"
-    if cfg.mixer_pattern not in ("attn", "mamba", "jamba"):
-        what = f"the {cfg.mixer_pattern} layer pattern"
-    elif cfg.enc_dec:
-        what = "the Whisper encoder-decoder"
-        item = "A10.3"
-    elif cfg.frontend != Frontend.NONE:
-        what = "the LLaVA vision frontend"
-        item = "A10.4"
-    else:
+    """Why ``cfg`` does not run in the port, or None: only a layer pattern
+    that JAX's ``mixer_of`` does not know."""
+    if cfg.mixer_pattern in ("attn", "mamba", "jamba"):
         return None
-    return f"{cfg.name}: {what} not yet ported to repro_torch: ROADMAP Queue {item}"
+    return (f"{cfg.name}: the {cfg.mixer_pattern} layer pattern is not ported to "
+            "repro_torch: ROADMAP Queue A10")
 
 
 Kind = Tuple[MixerKind, FFNKind]
@@ -93,6 +104,13 @@ Kind = Tuple[MixerKind, FFNKind]
 
 def _pattern(cfg: ArchConfig) -> List[Kind]:
     return [(cfg.mixer_of(i), cfg.ffn_of(i)) for i in range(cfg.n_layers)]
+
+
+def _encoder_layer_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    """One encoder layer: ln1, self-attention, ln2, the dense FFN."""
+    d = cfg.d_model
+    return {"ln1": ParamDef((d,), init="ones"), "attn": A.attn_defs(cfg),
+            "ln2": ParamDef((d,), init="ones"), "ffn": M.ffn_defs(cfg)}
 
 
 def _period(pat: List[Kind]) -> int:
@@ -103,12 +121,13 @@ def _period(pat: List[Kind]) -> int:
     return n
 
 
-def _layer_defs(cfg: ArchConfig, kind: Kind, model_par: int = 1, part: int = 0
-                ) -> Dict[str, Any]:
-    """One layer: ln1 and its mixer (``attn`` or ``mamba``), then ``ln2``
-    and the ``moe`` of an MoE layer (rank ``part``'s experts of a model
-    group of ``model_par``), or the dense ``ffn`` when d_ff > 0 (Mamba2 has
-    none)."""
+def _layer_defs(cfg: ArchConfig, kind: Kind, model_par: int = 1, part: int = 0,
+                cross: bool = False) -> Dict[str, Any]:
+    """One layer: ln1 and its mixer (``attn`` or ``mamba``), with ``cross``
+    (a Whisper decoder layer) ``ln_x`` and the cross-attention ``xattn``,
+    then ``ln2`` and the ``moe`` of an MoE layer (rank ``part``'s experts of
+    a model group of ``model_par``), or the dense ``ffn`` when d_ff > 0
+    (Mamba2 has none)."""
     mixer, ffn = kind
     d = cfg.d_model
     out: Dict[str, Any] = {"ln1": ParamDef((d,), init="ones")}
@@ -116,6 +135,9 @@ def _layer_defs(cfg: ArchConfig, kind: Kind, model_par: int = 1, part: int = 0
         out["attn"] = A.attn_defs(cfg)
     else:
         out["mamba"] = SSM.mamba_defs(cfg)
+    if cross:
+        out["ln_x"] = ParamDef((d,), init="ones")
+        out["xattn"] = A.attn_defs(cfg, cross=True)
     if ffn == FFNKind.MOE:
         out["ln2"] = ParamDef((d,), init="ones")
         out["moe"] = M.moe_defs(cfg, model_par, part)
@@ -156,10 +178,18 @@ class Model:
         if not cfg.tie_embeddings:
             d["unembed"] = ParamDef((cfg.d_model, self.padded_vocab), init="fan_in")
         d["final_ln"] = ParamDef((cfg.d_model,), init="ones")
-        per_group = {f"l{j}": _layer_defs(cfg, self.pattern[j], S, part)
+        per_group = {f"l{j}": _layer_defs(cfg, self.pattern[j], S, part,
+                                          cross=cfg.enc_dec)
                      for j in range(self.period)}
         d["layers"] = (stack_defs([per_group] * self.n_groups) if self.n_groups > 1
                        else per_group)
+        # JAX stacks the encoder with scan_layers, else keeps e0 .. e{n-1}
+        n_enc = cfg.n_encoder_layers
+        self.enc_scan = cfg.enc_dec and n_enc > 1 and cfg.scan_layers
+        if cfg.enc_dec:
+            d["encoder"] = (stack_defs([_encoder_layer_defs(cfg)] * n_enc) if self.enc_scan
+                            else {f"e{i}": _encoder_layer_defs(cfg) for i in range(n_enc)})
+            d["enc_final_ln"] = ParamDef((cfg.d_model,), init="ones")
         if cfg.param_dtype != "float32":
             pd = torch_dtype(cfg.param_dtype)
             d = tree_map(lambda x: dataclasses.replace(x, dtype=pd)
@@ -199,38 +229,81 @@ class Model:
             return x
         return x + M.ffn_apply(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
 
-    def _mix(self, x, p, kind: Kind, use_flash=False):
-        """x plus the layer's mixer of it (the FFN's input)."""
+    def _mix(self, x, p, kind: Kind, use_flash=False, enc_out=None):
+        """x plus the layer's mixer of it, then plus its cross-attention to
+        ``enc_out`` when given (the FFN's input)."""
         cfg = self.cfg
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         if kind[0] == MixerKind.ATTN:
             h = A.attention_train(p["attn"], h, cfg, causal=True, use_flash=use_flash)
         else:
             h = SSM.mamba_train(p["mamba"], h, cfg)
-        return x + h
+        x = x + h
+        if enc_out is not None:
+            h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
+            x = x + A.attention_train(p["xattn"], h, cfg, kv_src=enc_out)
+        return x
 
-    def _apply_layer(self, x, p, kind: Kind, use_flash=False):
-        return self._ffn(self._mix(x, p, kind, use_flash=use_flash), p, kind)
+    def _apply_layer(self, x, p, kind: Kind, use_flash=False, enc_out=None):
+        return self._ffn(self._mix(x, p, kind, use_flash=use_flash, enc_out=enc_out),
+                         p, kind)
 
     def _unembed(self, cast, x):
         w = cast["tok_emb"].T if self.cfg.tie_embeddings else cast["unembed"]
         return matmul(x, w)
 
-    def embed(self, params, tokens):
-        return params["tok_emb"][tokens.long()].to(self.dtype)
+    def embed(self, params, tokens, inputs=None):
+        """The token embeddings in the config's dtype; with the vision
+        frontend and ``inputs["patch_embeds"]`` (B, nf, d_model), those of
+        the first nf positions replaced by the patches, cast to the same
+        type (JAX's ``dynamic_update_slice``, which takes no nf > T)."""
+        x = params["tok_emb"][tokens.long()].to(self.dtype)
+        if self.cfg.frontend == Frontend.VISION and inputs and "patch_embeds" in inputs:
+            pe = inputs["patch_embeds"]
+            if pe.dim() != 3 or pe.shape[1] > x.shape[1] or pe.shape[0] != x.shape[0] \
+                    or pe.shape[2] != x.shape[2]:
+                raise ValueError(f"patch_embeds {tuple(pe.shape)} do not fit over the "
+                                 f"leading positions of embeddings {tuple(x.shape)}")
+            x[:, :pe.shape[1]] = pe.to(x.dtype)  # x is the gather's own copy
+        return x
+
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The Whisper encoder on precomputed frame embeddings (B, S,
+        d_model), cast to the config's dtype: each layer rmsnorm,
+        non-causal self-attention (rope, the chunked route), residual,
+        rmsnorm, the dense FFN, residual; then ``enc_final_ln``."""
+        cfg = self.cfg
+        x = frames.to(self.dtype)
+        enc = params["encoder"]
+        layers = ((tree_map(lambda a: a[i], enc) for i in range(cfg.n_encoder_layers))
+                  if self.enc_scan else
+                  (enc[f"e{i}"] for i in range(cfg.n_encoder_layers)))
+        for p in layers:
+            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+            x = x + A.attention_train(p["attn"], h, cfg, causal=False)
+            h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+            x = x + M.ffn_apply(p["ffn"], h, cfg)
+        return rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
+
+    def _inputs(self, cast, inputs):
+        """(the embeddings, the encoder's output or None) of ``inputs``."""
+        x = self.embed(cast, inputs["tokens"], inputs)
+        enc_out = self._encode(cast, inputs["enc_frames"]) if self.cfg.enc_dec else None
+        return x, enc_out
 
     def hidden(self, params: Params, inputs: Dict[str, torch.Tensor],
                use_flash: bool = False) -> torch.Tensor:
         """Final hidden states (forward minus unembedding)."""
         cast = self.cast(params)
-        x = self.embed(cast, inputs["tokens"])
+        x, enc_out = self._inputs(cast, inputs)
         for kind, p in zip(self.kinds, self._layers(cast["layers"])):
-            x = self._apply_layer(x, p, kind, use_flash=use_flash)
+            x = self._apply_layer(x, p, kind, use_flash=use_flash, enc_out=enc_out)
         return rmsnorm(x, cast["final_ln"], self.cfg.norm_eps)
 
     def forward(self, params: Params, inputs: Dict[str, torch.Tensor],
                 use_flash: bool = False) -> torch.Tensor:
-        """Logits (B, T, padded_vocab) of ``inputs["tokens"]`` (B, T)."""
+        """Logits (B, T, padded_vocab) of ``inputs["tokens"]`` (B, T), with
+        Whisper's ``enc_frames`` and LLaVA's ``patch_embeds`` where given."""
         cast = self.cast(params)
         return self._unembed(cast, self.hidden(cast, inputs, use_flash=use_flash))
 
@@ -238,10 +311,14 @@ class Model:
     def cache_defs(self, batch: int, seq: int) -> Dict[str, Any]:
         """Per layer: the k and v cache of an attention layer (the latents
         and rope keys of an MLA one), the conv windows and SSM state of a
-        Mamba2 layer. Under a grid ``batch`` is this machine's rows."""
+        Mamba2 layer; with ``enc_dec`` also the cross cache of
+        ``encoder_ctx`` positions. Under a grid ``batch`` is this machine's
+        rows."""
+        cross = self.cfg.encoder_ctx if self.cfg.enc_dec else 0
+
         def one(kind):
             if kind[0] == MixerKind.ATTN:
-                return A.cache_defs(self.cfg, batch, seq)
+                return A.cache_defs(self.cfg, batch, seq, cross_len=cross)
             return SSM.mamba_state_defs(self.cfg, batch)
 
         per_group = {f"l{j}": one(self.pattern[j]) for j in range(self.period)}
@@ -255,7 +332,9 @@ class Model:
 
     def decode_step(self, params: Params, caches, token: torch.Tensor, index: int):
         """token: (B, 1) ids at position ``index``. Writes the caches in
-        place (JAX returns new ones) and returns (logits, caches)."""
+        place (JAX returns new ones) and returns (logits, caches). A
+        decoder layer of ``enc_dec`` cross-attends to its ``xk``/``xv``
+        after its self-attention; no patches are fed, as in JAX."""
         cfg = self.cfg
         cast = self.cast(params)
         x = self.embed(cast, token)  # (B, 1, D)
@@ -266,7 +345,11 @@ class Model:
                 h, _ = A.attention_decode(p["attn"], h, c, index, cfg)
             else:
                 h, _ = SSM.mamba_decode(p["mamba"], h, c, cfg)
-            x = self._ffn(x + h, p, kind)
+            x = x + h
+            if cfg.enc_dec:
+                h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
+                x = x + A.cross_attention_decode(p["xattn"], h, c, cfg)
+            x = self._ffn(x, p, kind)
         x = rmsnorm(x, cast["final_ln"], cfg.norm_eps)
         return self._unembed(cast, x), caches
 
@@ -341,10 +424,10 @@ def forward_routes(model: Model, params: Params, inputs: Dict[str, torch.Tensor]
     (``moe.flipped``)."""
     cfg = model.cfg
     cast = model.cast(params)
-    x = model.embed(cast, inputs["tokens"])
+    x, enc_out = model._inputs(cast, inputs)
     sets = []
     for kind, p in zip(model.kinds, model._layers(cast["layers"])):
-        x = model._mix(x, p, kind, use_flash=use_flash)
+        x = model._mix(x, p, kind, use_flash=use_flash, enc_out=enc_out)
         if kind[1] == FFNKind.MOE:
             h = rmsnorm(x, p["ln2"], cfg.norm_eps)
             sets.append(M.route(p["moe"], h.reshape(-1, cfg.d_model), cfg)[2])

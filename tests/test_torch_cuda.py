@@ -729,6 +729,72 @@ def test_mla_prefill_and_decode_on_card_match_cpu(cuda):
         assert float((g.cpu() - w).abs().max()) <= tol
 
 
+def _fill_cross(model, params, caches, frames):
+    """Whisper's cross caches from the encoder's output (``enc_out @
+    xattn.wk`` and ``@ xattn.wv``, as JAX's tests fill them)."""
+    cfg = model.cfg
+    cast = model.cast(params)
+    enc = model._encode(cast, frames)
+    B = frames.shape[0]
+    for p, c in zip(model._layers(cast["layers"]), model._layers(caches)):
+        c["xk"].copy_((enc @ p["xattn"]["wk"]).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim))
+        c["xv"].copy_((enc @ p["xattn"]["wv"]).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim))
+    return caches
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "llava-next-mistral-7b"])
+def test_enc_dec_and_vision_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """The reduced Whisper (with encoder frames; cross caches filled from
+    the encoder) and LLaVA (patch embeddings over the first 16 positions)
+    in f32: the flash prefill (one launch a decoder layer; the encoder and
+    cross-attention launch none) within 2e-3 and five teacher-forced decode
+    steps (no launch) within 2e-5 x max(1, max|logit|), card against CPU
+    from the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(ARCHS[arch].reduced(), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), params)
+    rng = _rng(15)
+    B, T = 2, 96
+    inputs = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (B, T)))}
+    if cfg.enc_dec:
+        inputs["enc_frames"] = torch.tensor(
+            rng.standard_normal((B, cfg.encoder_ctx, cfg.d_model)), dtype=torch.float32)
+    else:
+        inputs["patch_embeds"] = torch.tensor(
+            rng.standard_normal((B, cfg.n_frontend_tokens, cfg.d_model)),
+            dtype=torch.float32)
+    prefill, serve = build_prefill_step(model, use_flash=True), build_serve_step(model)
+
+    def run(p, dev):
+        got = [prefill(p, {k: v.to(dev) for k, v in inputs.items()})]
+        caches = model.init_caches(B, 5, device=dev)
+        if cfg.enc_dec:
+            caches = _fill_cross(model, p, caches, inputs["enc_frames"].to(dev))
+        tok = inputs["tokens"].to(dev)
+        for i in range(5):
+            got.append(serve(p, caches, tok[:, i:i + 1], i)[0])
+        return got
+
+    build.reset_launches()
+    got = run(card, cuda)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert sum(build.LAUNCHES.values()) == cfg.n_layers
+    want = run(params, "cpu")
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=2e-3, atol=2e-3)
+    for g, w in zip(got[1:], want[1:]):
+        tol = 2e-5 * max(1.0, float(w.abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= tol
+
+
 MOE_ARCHS = ["mixtral-8x7b", "dbrx-132b", "jamba-1.5-large-398b"]
 
 

@@ -367,26 +367,29 @@ def test_cast_once_keeps_forward():
     assert torch.equal(m.forward(p, {"tokens": tok}), m.forward(cast, {"tokens": tok}))
 
 
-@pytest.mark.parametrize("arch,item", [("minicpm3-4b", None),
-                                       ("whisper-large-v3", "A10.3"),
-                                       ("llava-next-mistral-7b", "A10.4")],
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "whisper-large-v3",
+                                  "llava-next-mistral-7b"],
                          ids=["minicpm3-4b", "whisper-large-v3", "llava-next-mistral-7b"])
-def test_build_model_refuses_unported(arch, item):
-    """Whisper and LLaVA still refuse, naming their ROADMAP items;
-    MiniCPM3 (MLA, A10.2) builds, with JAX's parameter tree."""
-    if item is None:
-        jm, m = jax_build(JAX_ARCHS[arch].reduced()), build_model(ARCHS[arch].reduced())
-        flat = jax.tree_util.tree_leaves_with_path(jm.defs, is_leaf=lambda x: hasattr(
-            x, "materialize"))
-        got = m.defs
-        for path, want in flat:
-            node = got
-            for key in path:
-                node = node[key.key]
-            assert tuple(node.shape) == tuple(want.shape)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue {item}"):
-        build_model(ARCHS[arch].reduced())
+def test_build_model_refuses_unported(arch):
+    """The models once refused now build, with JAX's parameter tree:
+    MiniCPM3 (MLA, A10.2), Whisper (the encoder-decoder, A10.3) and LLaVA
+    (the vision frontend, A10.4). Only an unknown layer pattern is still
+    refused."""
+    jm, m = jax_build(JAX_ARCHS[arch].reduced()), build_model(ARCHS[arch].reduced())
+    flat = jax.tree_util.tree_leaves_with_path(jm.defs, is_leaf=lambda x: hasattr(
+        x, "materialize"))
+    for path, want in flat:
+        node = m.defs
+        for key in path:
+            node = node[key.key]
+        assert tuple(node.shape) == tuple(want.shape)
+    assert len(flat) == _leaf_count(m.defs)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A10"):
+        build_model(dataclasses.replace(ARCHS[arch].reduced(), mixer_pattern="rwkv"))
+
+
+def _leaf_count(tree):
+    return sum(_leaf_count(v) for v in tree.values()) if isinstance(tree, dict) else 1
 
 
 def test_cpu_path_launches_no_kernel():
