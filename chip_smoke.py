@@ -149,9 +149,9 @@ Phases, each fatal on failure (exit code 1, no result line):
      dim-400 steps of TransE_l2 and DistMult through the ordered runtime on
      the card and in a gloo world of one on the CPU, under phase 4's rule;
      step time, device time and idle share beside phase 13's.
- 16. MoE prefill at full width: Mixtral-8x7B cut to 4 layers on (1, 8192)
-     tokens from numpy seed 0 (its window of 4096 masks), then DBRX cut to
-     4 layers on (1, 4096), weights drawn on the card from seed 0, in bf16
+ 16. MoE prefill at full width: Mixtral-8x7B cut to 2 layers (4 before
+     phase 25) on (1, 8192) tokens from numpy seed 0 (its window of 4096
+     masks), then DBRX cut to 2 layers (4 before) on (1, 4096), weights drawn on the card from seed 0, in bf16
      through ``build_prefill_step(model, use_flash=True)``: exactly one
      flash launch per layer a forward, finite logits, the chunked route
      beside it (flipped tokens by layer); Mixtral also in f32 from the same
@@ -165,7 +165,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      prefill tokens/s and device time by kernel (flash, GEMMs, the rest)
      for both routes, and the peak device memory.
  17. MoE serve: ``repro_torch.launch.serve.generate`` (the CLI's loop and
-     its ThroughputHook) on the 4-layer Mixtral at batch 4, 32 + 16
+     its ThroughputHook) on the 2-layer Mixtral at batch 4, 32 + 16
      tokens: finite logits, no kernel launch; in f32 from the same
      weights, the teacher-forced logits at the prompt positions against the
      f32 flash prefill, 90% of the tokens within 2e-3 x max(1,
@@ -176,24 +176,26 @@ Phases, each fatal on failure (exit code 1, no result line):
      with exactly 4 ssd_scan wrapper calls and 1 flash launch a forward,
      the chunked route beside it; then ``generate`` at batch 4, 32 + 16:
      finite logits, no kernel launch, decode tokens/s.
- 19. MLA prefill: MiniCPM3-4B at all 62 layers and full width, weights
+ 19. MLA prefill: MiniCPM3-4B at full width, 16 of its 62 layers (all
+     62 before phase 25), weights
      drawn on the card from seed 0, in bf16, on (4, 2048) tokens from numpy
      seed 0 through ``build_prefill_step(model, use_flash=True)`` (MLA
      takes the chunked route, as in JAX): no kernel launch, finite logits;
      forward ms, prefill tokens/s, the device time split into GEMMs, the
      chunked attention's elementwise work and the rest, the peak device
      memory, and the f32 forward's distance from the bf16 one.
- 20. MLA serve: ``repro_torch.launch.serve.generate`` on the 62-layer
+ 20. MLA serve: ``repro_torch.launch.serve.generate`` on the 16-layer
      MiniCPM3-4B at batch 4, 32 + 16 tokens: finite logits, no kernel
      launch; in f32 from the same weights, the absorbed decode's
      teacher-forced logits at the 32 prompt positions against the f32
      prefill, every token within 2e-3 x max(1, max|logit|); decode tokens/s
      with the card synchronised and the cache bytes a token.
- 21. Whisper prefill: Whisper-large-v3 at all 32 + 32 layers and full
+ 21. Whisper prefill: Whisper-large-v3 at 8 + 8 of its 32 + 32 layers
+     (all before phase 25) and full
      width, weights drawn on the card from seed 0, in bf16, on (4, 448)
      decoder tokens (its published text context) and (4, 1500, 1280)
      encoder frames from numpy seed 0 through ``build_prefill_step(model,
-     use_flash=True)``: exactly 32 flash launches a forward and nothing
+     use_flash=True)``: one flash launch a decoder layer and nothing
      else (the encoder and cross-attention take the chunked route, as in
      JAX), finite logits, the chunked route's logits beside them, the f32
      forward's distance from the bf16 one; forward ms, decoder tokens/s,
@@ -205,13 +207,14 @@ Phases, each fatal on failure (exit code 1, no result line):
      and the cross cache's fixed bytes a sequence; in f32, the
      teacher-forced decode on cross caches filled from the f32 encoder
      against the f32 prefill, every token within 2e-3 x max(1,
-     max|logit|), at full depth with the layers kept apart (the served,
+     max|logit|), at the cut depth with the layers kept apart (the served,
      stacked weights are chaotic under JAX's init: their reading is
      printed beside the f32 chunked-vs-flash prefill's;
      ``run_frontend_serve`` says why).
- 23. LLaVA prefill: LLaVA-NeXT-Mistral-7B at all 32 layers, bf16, on (2,
+ 23. LLaVA prefill: LLaVA-NeXT-Mistral-7B at 8 of its 32 layers (all
+     before phase 25), bf16, on (2,
      4096) tokens whose first 2,880 positions are patch embeddings (one
-     anyres image and its text): exactly 32 flash launches a forward,
+     anyres image and its text): one flash launch a layer,
      finite logits, other logits when the patches change, the f32
      forward's distance; forward ms, tokens/s, device time split into
      flash, GEMMs and the rest; the peak memory.
@@ -219,6 +222,26 @@ Phases, each fatal on failure (exit code 1, no result line):
      decode): no launch, finite logits; decode tokens/s; the f32
      teacher-forced decode against the f32 prefill within the plain bound,
      as phase 22 holds it.
+ 25. LM training (``models/steps.py::build_train_step``, the route JAX's
+     training takes: the chunked attention, the plain SSD scan, no kernel
+     launch anywhere): (a) Qwen1.5-0.5B and Mamba2-2.7B at full width cut
+     to 2 layers and the reduced DBRX (Adafactor), in f32, two steps of 2
+     microbatches of (2, 128) on the card and on the CPU from the same
+     weights and batches, under ``train_rule`` (losses within 2e-5 x
+     max(1, |loss|), the first step's gradients within 2e-4 x max(1,
+     max|g|), parameters under the flip rule, the optimizer state); (b)
+     Qwen1.5-0.5B at full width and depth (0.62 B parameters, f32 weights,
+     bf16 compute, AdamW, its 8 microbatches of a (16, 2048) batch, remat):
+     a warm-up step and 3 timed ones on one fixed batch, one more traced:
+     finite losses, every leaf moved; step ms, tokens/s, device time split
+     into GEMMs, the chunked attention's elementwise work and the rest,
+     peak memory and 6 N D model FLOPs against the bf16 peak; (c) the same
+     for DBRX-132B cut to 1 layer (4.49 B parameters, bf16 weights,
+     Adafactor, 16 microbatches of (1, 1024), 2 timed steps); (d)
+     ``repro_torch.examples.train_lm_smoke`` on the card, with its own
+     assertion; (e) A10.5b: JAX's ``test_train_step_fsdp_moe`` Mixtral
+     (reduced, f32), one step in a 1x1 NCCL world on the card and a 1x1
+     gloo world on the CPU under ``train_rule``.
 
 The routing rule, for every comparison that involves MoE layers: a token
 whose top-k expert set differs between the two runs in any MoE layer sits
@@ -318,16 +341,20 @@ SSD_SHAPES = {
 MIXTRAL, DBRX, JAMBA = "mixtral-8x7b", "dbrx-132b", "jamba-1.5-large-398b"
 # phases 16-18: full width, cut in depth to fit one card (PERF.md §4): Jamba's
 # first five layers are four Mamba2 ones (MoE on 1 and 3) and its attention
-MOE_CUTS = {MIXTRAL: 4, DBRX: 4, JAMBA: 5}
+MOE_CUTS = {MIXTRAL: 2, DBRX: 2, JAMBA: 5}
 MOE_TOKENS = {MIXTRAL: (1, 8192), DBRX: (1, 4096), JAMBA: (1, 4096)}
 MOE_SERVE = (4, 32, 16)  # batch, prompt tokens, generated tokens
-MINICPM = "minicpm3-4b"  # phases 19-20: all 62 layers at full width (MLA)
+MINICPM = "minicpm3-4b"  # phases 19-20: MLA at full width
 MLA_TOKENS = (4, 2048)
 MLA_SERVE = (4, 32, 16)
 # phases 21-24: all layers at full width; Whisper's decoder context is its
 # published n_text_ctx, 448; LLaVA's prompt is one anyres image (2,880 patch
 # positions) and its text
 WHISPER, LLAVA = "whisper-large-v3", "llava-next-mistral-7b"
+# phases 19-24 at full width cut in depth (since phase 25 came;
+# PERF.md §4 names each cut and the seconds it gave back)
+LM_CUTS = {MINICPM: dict(n_layers=16), WHISPER: dict(n_layers=8, n_encoder_layers=8),
+           LLAVA: dict(n_layers=8)}
 WHISPER_TOKENS = (4, 448)
 LLAVA_TOKENS = (2, 4096)
 FRONTEND_SERVE = (4, 32, 16)
@@ -338,6 +365,15 @@ ROUTE_TOL_F32 = 1e-3
 AGREE_SHARE = 0.9
 SSD_CHUNK = 64  # the rows of a chunk in ssd_ops' count (the kernel's are 64 too)
 SSD_REF_TOL = 1e-4  # against ssd_ref: JAX's bound (tests/test_kernels.py:94-99)
+# phase 25: LM training. (a) card vs CPU in f32: full width cut to 2 layers
+# on (4, 128) tokens in 2 microbatches; (b) Qwen1.5-0.5B at all 24 layers on
+# its 8 microbatches of a (16, 2048) batch; (c) DBRX cut to 1 layer on its 16
+# microbatches of (16, 1024); the step's rule (train_rule)
+TRAIN_AGREE_TOKENS, TRAIN_AGREE_MB = (4, 128), 2
+TRAIN_QWEN_TOKENS, TRAIN_QWEN_TIMED = (16, 2048), 3
+TRAIN_DBRX_LAYERS, TRAIN_DBRX_TOKENS, TRAIN_DBRX_TIMED = 1, (16, 1024), 2
+TRAIN_LR = 1e-4  # build_train_step's default, JAX's
+LOSS_TOL, GRAD_TOL, PARAM_TOL = 2e-5, 2e-4, 1e-6
 
 TPU_KERNEL = {
     "pairwise": "src/repro/kernels/kge_score/kge_score.py:57",
@@ -352,6 +388,378 @@ TPU_KERNEL = {
     # ssd_scan_pallas (:67), its pallas_call at :85
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:67",
 }
+
+
+# ---------------------------------------------------------------------------
+# phase 25: LM training (A10.5, A10.5b)
+# ---------------------------------------------------------------------------
+def train_run(torch, model, params, batches, lr):
+    """``build_train_step(model, lr)`` for one step a batch, from
+    ``params``, with each step's gradient as the step hands it to its
+    optimizer (the microbatches' f32 sum over mb; recorded by wrapping
+    ``make_optimizer`` while the step is built). Returns dict(losses,
+    grads, params, state) with the tensors on the CPU, by path."""
+    from repro_torch.models import steps
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim.dense import Optimizer
+
+    grads, make = [], steps.make_optimizer
+
+    def recording(name, lr, **kw):
+        opt = make(name, lr, **kw)
+
+        def update(p, g, s):
+            grads.append({k: v.detach().float().cpu() for k, v in _named_leaves(
+                tree_map(lambda x, y: torch.zeros_like(x) if y is None else y, p, g))})
+            return opt.update(p, g, s)
+
+        return Optimizer(opt.init, update)
+
+    steps.make_optimizer = recording
+    try:
+        step, opt = steps.build_train_step(model, lr=lr)
+    finally:
+        steps.make_optimizer = make
+    state = opt.init(params)
+    losses = []
+    for b in batches:
+        params, state, met = step(params, state, b)
+        losses.append(float(met["loss"]))
+    return dict(losses=losses, grads=grads,
+                params={k: v.float().cpu() for k, v in _named_leaves(params)},
+                state={k: v.float().cpu() for k, v in _named_leaves(state) if k != ("step",)})
+
+
+def train_rule(label, got, want, lr):
+    """Phase 25's rule, card (``got``) against the CPU (``want``), as
+    ``train_run`` gives them: each loss within 2e-5 x max(1, |loss|); each
+    gradient leaf of the first step (the same weights on both) within 2e-4
+    x max(1, max|g|); the parameters under the flip rule: an entry whose
+    CPU gradient at some step lies within that tolerance of 0 may move the
+    other way that step, as Adam's first step is lr x sign(g) (counted,
+    printed, and within 2 lr a step); every other entry within 1e-6 x
+    max(1, max|p|) + 1% of lr a step; the optimizer state within 2e-4 x
+    max(1, max|s|). Returns the summary (printed)."""
+    n = len(want["losses"])
+    loss_err = max(abs(g - w) / max(1.0, abs(w))
+                   for g, w in zip(got["losses"], want["losses"]))
+    grad_ratio, near0 = 0.0, {}
+    for s, (gg, gw) in enumerate(zip(got["grads"], want["grads"])):
+        for k, w in gw.items():
+            tol = GRAD_TOL * max(1.0, float(w.abs().max()))
+            near0[k] = (w.abs() <= tol) | near0.get(k, False)
+            if s == 0:
+                grad_ratio = max(grad_ratio, float((gg[k] - w).abs().max()) / tol)
+    flips, params_ok = 0, True
+    for k, w in want["params"].items():
+        d = (got["params"][k] - w).abs()
+        bad = d > PARAM_TOL * max(1.0, float(w.abs().max())) + 1e-2 * lr * n
+        z = near0[k]
+        params_ok &= not bool((bad & ~z).any()) and bool((d[z] <= 2 * lr * n + 1e-7).all())
+        flips += int((bad & z).sum())
+    state_ratio = max(float((got["state"][k] - w).abs().max())
+                      / (GRAD_TOL * max(1.0, float(w.abs().max())))
+                      for k, w in want["state"].items())
+    a = dict(steps=n, losses_card=got["losses"], losses_cpu=want["losses"],
+             loss_rel_err=loss_err, grad_share_of_tol=grad_ratio, flipped=flips,
+             params_ok=params_ok, state_share_of_tol=state_ratio)
+    print(f"  {label}: losses card {[f'{x:.6f}' for x in got['losses']]}, CPU "
+          f"{[f'{x:.6f}' for x in want['losses']]} (rel err {loss_err:.2e}); the first "
+          f"step's gradients at {grad_ratio:.3f} of 2e-4 x max(1, max|g|); "
+          f"{flips} parameter entries flipped, the rest within the rule: {params_ok}; "
+          f"state at {state_ratio:.3f} of its bound")
+    check(loss_err <= LOSS_TOL and grad_ratio <= 1.0 and params_ok and state_ratio <= 1.0,
+          f"{label}: card and CPU train steps disagree")
+    return a
+
+
+def train_batches(np, cfg, B, T, mb, n, seed=0):
+    """``n`` global batches of random tokens and labels (numpy seed ``seed``),
+    (mb, B / mb, T) or (B, T) with one microbatch."""
+    rng = np.random.default_rng(seed)
+    shape = (B, T) if mb == 1 else (mb, B // mb, T)
+    return [{k: rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+             for k in ("tokens", "labels")} for _ in range(n)]
+
+
+def check_train_agreement(torch, np, dev, arch, reduced=False):
+    """Phase 25(a): ``arch`` in f32, at full width cut to 2 layers (kept
+    apart, as phase 4's prefills keep theirs) with TRAIN_AGREE's tokens and
+    microbatches, or reduced (DBRX, whose config picks Adafactor), from the
+    same weights and batches: two ``build_train_step`` steps on the card
+    and on the CPU, under ``train_rule``; no kernel launch on the card
+    (the train route is JAX's: chunked attention, the plain SSD scan)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.transformer import build_model
+
+    (B, T), mb = TRAIN_AGREE_TOKENS, TRAIN_AGREE_MB
+    base = get_arch(arch).reduced() if reduced else dataclasses.replace(
+        get_arch(arch), n_layers=2, scan_layers=False)
+    cfg = dataclasses.replace(base, dtype="float32", param_dtype="float32",
+                              microbatches=mb)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1))
+    card = tree_map(lambda t: t.to(dev, copy=True), params)
+    batches = train_batches(np, cfg, B, T, mb, 2, seed=1)
+    build.reset_launches()
+    got = train_run(torch, model, card,
+                    [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in batches],
+                    TRAIN_LR)
+    _sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    want = train_run(torch, model, params,
+                     [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches],
+                     TRAIN_LR)
+    label = (f"{arch} {'reduced' if reduced else 'full width, 2 layers'}, f32, "
+             f"{cfg.optimizer}, {mb} microbatches of {(B // mb, T)}")
+    print(f"  {label}: {sum(launches.values())} kernel launches")
+    check(sum(launches.values()) == 0, f"{arch}: the train route launched {launches}")
+    return train_rule(label, got, want, TRAIN_LR)
+
+
+def train_world_body(grid, cfg, params, batches, lr):
+    """In a world of one rank: ``train_run`` of ``cfg`` with the grid (its
+    MoE layers on the capacity-bounded route over the model group, the
+    gradients averaged over the machine group)."""
+    import torch
+
+    from repro_torch.models.transformer import build_model
+
+    return train_run(torch, build_model(cfg, grid=grid), params, batches, lr)
+
+
+def check_train_world(torch, np, dev):
+    """Phase 25(e), A10.5b: JAX's ``test_train_step_fsdp_moe`` Mixtral
+    (reduced, 2 microbatches, capacity factor 4), in f32, one
+    ``build_train_step`` step in a 1x1 NCCL world on the card and in a 1x1
+    gloo world on the CPU from the same weights and batch, under
+    ``train_rule``; no kernel launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_arch(MIXTRAL).reduced(), microbatches=2, fsdp=True,
+                              capacity_factor=4.0, dtype="float32")
+    mb, (T, B) = 2, (8, 32)
+    params = build_model(cfg).init(torch.Generator().manual_seed(1))
+    batches = train_batches(np, cfg, B, T, mb, 1, seed=2)
+    build.reset_launches()
+    got = run_world(1, 1, train_world_body,
+                    (cfg, tree_map(lambda t: t.to(dev, copy=True), params),
+                     [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                      for b in batches], TRAIN_LR), device=dev.type)
+    launches = dict(build.LAUNCHES)
+    want = run_world(1, 1, train_world_body,
+                     (cfg, params, [{k: torch.from_numpy(v) for k, v in b.items()}
+                                    for b in batches], TRAIN_LR))
+    label = f"{MIXTRAL} reduced, f32, one step in a 1x1 world, NCCL card vs gloo CPU"
+    print(f"  {label}: {sum(launches.values())} kernel launches")
+    check(sum(launches.values()) == 0, f"the 1x1 train world launched {launches}")
+    return train_rule(label, got, want, TRAIN_LR), launches
+
+
+def attention_train_alone(torch, dev, cfg, rows, T, reps=3):
+    """Device ms of one layer's chunked attention on a microbatch, traced
+    alone at the train route's shapes: the forward (remat runs it again in
+    the backward pass) and the forward with its backward, each split into
+    (GEMMs, the rest)."""
+    from repro_torch.models.attention import _sdpa_chunked
+    from repro_torch.models.layers import torch_dtype
+
+    dt = torch_dtype(cfg.dtype)
+    g = torch.Generator(device=dev).manual_seed(2)
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn(rows, T, H, dh, generator=g, device=dev).to(dt).requires_grad_(True)
+    k = torch.randn(rows, T, Hkv, dh, generator=g, device=dev).to(dt).requires_grad_(True)
+    v = torch.randn(rows, T, Hkv, dh, generator=g, device=dev).to(dt).requires_grad_(True)
+
+    def fwd():
+        with torch.no_grad():
+            _sdpa_chunked(q, k, v, causal=True, window=0, q_offset=0)
+
+    def fwd_bwd():
+        o = _sdpa_chunked(q, k, v, causal=True, window=0, q_offset=0)
+        o.float().sum().backward()
+
+    out = []
+    for label, fn in (("one layer's chunked attention forward", fwd),
+                      ("the same with its backward", fwd_bwd)):
+        fn()
+        kern = trace_events(torch, fn, reps)
+        # each kernel's mean over the launches the trace holds (PERF.md §7)
+        per = {k: us / n * max(1, round(n / reps)) / 1e3 for k, (us, n) in kern.items()}
+        total = sum(per.values())
+        gemm = sum(ms for k, ms in per.items()
+                   if any(w in k for w in ("nvjet", "gemm", "cutlass")))
+        print(f"  {label} alone: {total:.2f} ms traced (GEMMs {gemm:.2f} ms)")
+        out.append((gemm, total - gemm))
+    return out
+
+
+def step_by_kernel(torch, model, opt, params, state, batch, mb):
+    """{kernel: device us} of one train step, as ``mb`` times one
+    microbatch (its loss and backward into ``.grad``, which holds the
+    earlier microbatches' sum, and the f32 sum of a leaf stored below f32)
+    plus the optimizer's update, each traced alone: a whole step's trace
+    holds ~60 k kernels, which torch.profiler takes tens of seconds to
+    read. The division of the sums by mb and the host's gaps are left
+    out. Updates ``params`` and ``state`` once more."""
+    leaves = [p for _, p in _named_leaves(params)]
+    mbatch = {k: v[0] for k, v in batch.items()} if mb > 1 else batch
+    sums = {}
+
+    def microbatch():
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            model.loss(params, mbatch).backward()
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        for p in leaves:
+            if mb > 1 and p.dtype != torch.float32:
+                g = p.grad.float()
+                sums[id(p)] = g if id(p) not in sums else sums[id(p)].add_(g)
+                p.grad = None
+
+    from repro_torch.models.layers import tree_map
+
+    microbatch()  # the next one adds into the sums, as every later one does
+    per_mb = trace_by_kernel(torch, microbatch)
+    grads = tree_map(lambda p: sums.get(id(p), p.grad), params)
+    upd = trace_by_kernel(torch, lambda: opt.update(params, grads, state))
+    for p in leaves:
+        p.grad = None
+    out = {k: us * mb for k, us in per_mb.items()}
+    for k, us in upd.items():
+        out[k] = out.get(k, 0.0) + us
+    return out
+
+
+def run_train_main(torch, np, dev, arch, n_layers, tokens, timed):
+    """Phase 25(b) (Qwen1.5-0.5B, all 24 layers) and (c) (DBRX cut to 1
+    layer): ``arch`` at full width in its config's dtypes (``param_dtype``
+    for the stored weights, ``dtype`` for compute), weights drawn on the
+    card from seed 0, its optimizer and microbatches, ``build_train_step``
+    on one fixed global batch of ``tokens`` (numpy seed 0): one warm-up
+    step, ``timed`` steps on the host clock (synchronised), then one
+    step's device time by kernel (``step_by_kernel``). Gates: finite
+    losses, every leaf moved, no kernel launch.
+    Prints step ms, tokens/s, the device time split into GEMMs (cuBLAS),
+    the chunked attention's elementwise work (one layer's forward and
+    forward-with-backward traced alone, times the layers and microbatches:
+    remat runs each forward twice) and the rest, the peak memory, and
+    6 N D model FLOPs (``ArchConfig.model_flops``) over the step against
+    the bf16 peak. Returns (launches, summary)."""
+    import dataclasses
+
+    from repro_torch.common.config import InputShape
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.models.transformer import build_model
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in _named_leaves(params))
+    B, T = tokens
+    shape = InputShape("train", T, B, "train")
+    step, opt = build_train_step(model, shape=shape)
+    from repro_torch.models.steps import effective_microbatches
+
+    mb = effective_microbatches(cfg, shape, model)
+    state = opt.init(params)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batches(np, cfg, B, T, mb, 1, seed=0)[0].items()}
+    print(f"  {cfg.name} at {n_layers} of {get_arch(arch).n_layers} layers, full width: "
+          f"{n_params / 1e9:.3f} B parameters (param_dtype {cfg.param_dtype}, dtype "
+          f"{cfg.dtype}), {cfg.optimizer}, {mb} microbatches of {(B // mb, T)}, remat "
+          f"{cfg.remat}; drawn on the card in {init_s:.1f} s")
+    first = {k: v.clone() for k, v in _named_leaves(params)}
+    build.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    params, state, met = step(params, state, batch)
+    losses.append(float(met["loss"]))
+    warm_s = time.perf_counter() - t0
+    moved = [k for k, v in _named_leaves(params) if not torch.equal(v, first[k])]
+    del first
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        params, state, met = step(params, state, batch)
+        losses.append(met["loss"])
+    _sync(torch, dev)
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    losses = [float(x) for x in losses]
+    launches = dict(build.LAUNCHES)
+    kern = step_by_kernel(torch, model, opt, params, state, batch, mb)
+    dev_ms = sum(kern.values()) / 1e3
+    gemm = sum(us for key, us in kern.items()
+               if any(w in key for w in ("nvjet", "gemm", "cutlass"))) / 1e3
+    (f_gemm, f_rest), (b_gemm, b_rest) = attention_train_alone(torch, dev, cfg, B // mb, T)
+    n_attn = sum(k[0].value == "attn" for k in model.kinds)
+    runs = 1 if cfg.remat else 0  # remat runs each forward once more
+    attn_rest = n_attn * mb * (runs * f_rest + b_rest)
+    attn_gemm = n_attn * mb * (runs * f_gemm + b_gemm)
+    rest = dev_ms - gemm - attn_rest
+    tok_s = B * T / step_ms * 1e3
+    flops = cfg.model_flops(shape)
+    mfu = flops / (step_ms / 1e3) / BF16_OPS_PER_S
+    peak = _peak_gb(torch, dev)
+    print(f"  losses {[f'{x:.4f}' for x in losses]}; warm-up step {warm_s:.2f} s; "
+          f"step {step_ms:.1f} ms ({tok_s:.0f} tokens/s); device {dev_ms:.1f} ms a "
+          f"traced step: GEMMs {gemm:.1f} ms ({gemm / dev_ms:.1%}; the chunked "
+          f"attention's of them {attn_gemm:.1f}), the chunked "
+          f"attention's elementwise work {attn_rest:.1f} ms ({attn_rest / dev_ms:.1%}), "
+          f"the rest {rest:.1f} ms ({rest / dev_ms:.1%}); peak {peak:.1f} GB; "
+          f"6 N D = {flops / 1e12:.1f} TFLOP a step, {mfu:.1%} of the bf16 peak "
+          f"({BF16_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    for key, us in top:
+        print(f"    {us / 1e3:9.3f} ms  {key[:100]}")
+    n_leaves = len(_named_leaves(params))
+    check(all(math.isfinite(x) for x in losses), f"{arch}: train losses not finite")
+    check(len(moved) == n_leaves, f"{arch}: {n_leaves - len(moved)} leaves did not move")
+    check(sum(launches.values()) == 0, f"{arch}: the train route launched {launches}")
+    summary = dict(layers=n_layers, params=n_params, tokens=(B, T), microbatches=mb,
+                   optimizer=cfg.optimizer, losses=losses, init_s=init_s,
+                   warmup_s=warm_s, step_ms=step_ms, tokens_per_s=tok_s,
+                   device_ms=dev_ms, device_busy=dev_ms / step_ms, gemm_ms=gemm,
+                   attention_gemm_ms=attn_gemm, attention_elementwise_ms=attn_rest,
+                   rest_ms=rest,
+                   model_tflop=flops / 1e12, model_flops_share=mfu, peak_gb=peak)
+    return launches, summary
+
+
+def run_train_smoke(torch, dev):
+    """Phase 25(d): ``python -m repro_torch.examples.train_lm_smoke`` in
+    process on the card, with its own assertion (the last loss below ln 64
+    - 0.5); no kernel launch."""
+    from repro_torch.examples import train_lm_smoke
+    from repro_torch.kernels import build
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    losses = train_lm_smoke.main(["--device", dev.type])
+    _sync(torch, dev)
+    launches = dict(build.LAUNCHES)
+    check(sum(launches.values()) == 0, f"train_lm_smoke launched {launches}")
+    return launches, dict(first_loss=losses[0], last_loss=losses[-1], steps=len(losses),
+                          seconds=time.perf_counter() - t0)
 
 
 class SmokeFailure(RuntimeError):
@@ -2534,7 +2942,7 @@ def _leaves(tree):
     return [tree]
 
 
-def moe_model(torch, dev, arch, n_layers=None):
+def moe_model(torch, dev, arch, n_layers=None, **cut):
     """``arch`` at full width cut to ``n_layers`` (MOE_CUTS[arch] by
     default; stacked, as the config's ``scan_layers`` stacks them), its
     weights drawn on the card by
@@ -2551,7 +2959,7 @@ def moe_model(torch, dev, arch, n_layers=None):
     from repro_torch.models.layers import tree_map
     from repro_torch.models.transformer import build_model
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers or MOE_CUTS[arch])
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers or MOE_CUTS[arch], **cut)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -2954,8 +3362,7 @@ def run_mla_prefill(torch, np, dev, reps=3):
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    model, params, cast, init_s = moe_model(torch, dev, MINICPM,
-                                            n_layers=get_arch(MINICPM).n_layers)
+    model, params, cast, init_s = moe_model(torch, dev, MINICPM, **LM_CUTS[MINICPM])
     cfg = model.cfg
     B, T = MLA_TOKENS
     inputs = {"tokens": torch.as_tensor(
@@ -3024,8 +3431,7 @@ def run_mla_serve(torch, np, dev):
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    model, params, cast, _ = moe_model(torch, dev, MINICPM,
-                                       n_layers=get_arch(MINICPM).n_layers)
+    model, params, cast, _ = moe_model(torch, dev, MINICPM, **LM_CUTS[MINICPM])
     cfg = model.cfg
     B, T, G = MLA_SERVE
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, T))
@@ -3236,8 +3642,7 @@ def run_frontend_prefill(torch, np, dev, arch, reps=3):
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    model, params, cast, init_s = moe_model(torch, dev, arch,
-                                            n_layers=get_arch(arch).n_layers)
+    model, params, cast, init_s = moe_model(torch, dev, arch, **LM_CUTS[arch])
     cfg = model.cfg
     B, T = WHISPER_TOKENS if cfg.enc_dec else LLAVA_TOKENS
     inputs = frontend_inputs(np, cfg, B, T, dev)
@@ -3371,8 +3776,8 @@ def run_frontend_serve(torch, np, dev, arch):
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    full = get_arch(arch)
-    model, params, cast, _ = moe_model(torch, dev, arch, n_layers=full.n_layers)
+    full = dataclasses.replace(get_arch(arch), **LM_CUTS[arch])
+    model, params, cast, _ = moe_model(torch, dev, arch, **LM_CUTS[arch])
     cfg = model.cfg
     B, T, G = FRONTEND_SERVE
     inputs = frontend_inputs(np, cfg, B, T, dev)
@@ -3430,6 +3835,17 @@ def run_frontend_serve(torch, np, dev, arch):
 
 
 T_START = time.perf_counter()
+
+
+def _depth(arch) -> str:
+    """``arch``'s depth cut (LM_CUTS), for a phase's title."""
+    from repro_torch.configs import get_arch
+
+    full, cut = get_arch(arch), LM_CUTS[arch]
+    text = f"{cut['n_layers']} of {full.n_layers} layers"
+    if "n_encoder_layers" in cut:
+        text += f" (encoder {cut['n_encoder_layers']} of {full.n_encoder_layers})"
+    return text
 
 
 def elapsed() -> str:
@@ -3606,41 +4022,64 @@ def main() -> int:
     free_card(torch)
 
     print(f"  ({elapsed()} since the start)")
-    print(f"== 19. MLA prefill: {MINICPM} at full width and depth, {MLA_TOKENS} tokens, "
+    print(f"== 19. MLA prefill: {MINICPM} at full width, {_depth(MINICPM)}, {MLA_TOKENS} tokens, "
           f"bf16, the chunked route")
     mla_pre_launches, mla_pre_path = run_mla_prefill(torch, np, dev)
     free_card(torch)
 
     print(f"  ({elapsed()} since the start)")
-    print(f"== 20. MLA serve: repro_torch.launch.serve.generate, {MINICPM} at full depth, "
+    print(f"== 20. MLA serve: repro_torch.launch.serve.generate, {MINICPM}, {_depth(MINICPM)}, "
           f"batch {MLA_SERVE[0]}, {MLA_SERVE[1]} + {MLA_SERVE[2]} tokens, absorbed decode")
     mla_serve_launches, mla_serve_path = run_mla_serve(torch, np, dev)
     free_card(torch)
 
     print(f"  ({elapsed()} since the start)")
-    print(f"== 21. Whisper prefill: {WHISPER} at full width and depth, {WHISPER_TOKENS} "
+    print(f"== 21. Whisper prefill: {WHISPER} at full width, {_depth(WHISPER)}, {WHISPER_TOKENS} "
           f"decoder tokens and 1500 encoder frames, bf16, flash")
     wh_pre_launches, wh_pre_path = run_frontend_prefill(torch, np, dev, WHISPER)
     free_card(torch)
 
     print(f"  ({elapsed()} since the start)")
-    print(f"== 22. Whisper serve: repro_torch.launch.serve.generate, {WHISPER} at full "
-          f"depth, batch {FRONTEND_SERVE[0]}, {FRONTEND_SERVE[1]} + {FRONTEND_SERVE[2]} "
+    print(f"== 22. Whisper serve: repro_torch.launch.serve.generate, {WHISPER}, "
+          f"{_depth(WHISPER)}, batch {FRONTEND_SERVE[0]}, {FRONTEND_SERVE[1]} + {FRONTEND_SERVE[2]} "
           f"tokens, zero cross caches")
     wh_serve_launches, wh_serve_path = run_frontend_serve(torch, np, dev, WHISPER)
     free_card(torch)
 
     print(f"  ({elapsed()} since the start)")
-    print(f"== 23. LLaVA prefill: {LLAVA} at full width and depth, {LLAVA_TOKENS} tokens, "
+    print(f"== 23. LLaVA prefill: {LLAVA} at full width, {_depth(LLAVA)}, {LLAVA_TOKENS} tokens, "
           f"the first 2880 patch embeddings, bf16, flash")
     lv_pre_launches, lv_pre_path = run_frontend_prefill(torch, np, dev, LLAVA)
     free_card(torch)
 
     print(f"  ({elapsed()} since the start)")
-    print(f"== 24. LLaVA serve: repro_torch.launch.serve.generate, {LLAVA} at full "
-          f"depth, batch {FRONTEND_SERVE[0]}, {FRONTEND_SERVE[1]} + {FRONTEND_SERVE[2]} "
+    print(f"== 24. LLaVA serve: repro_torch.launch.serve.generate, {LLAVA}, "
+          f"{_depth(LLAVA)}, batch {FRONTEND_SERVE[0]}, {FRONTEND_SERVE[1]} + {FRONTEND_SERVE[2]} "
           f"tokens")
     lv_serve_launches, lv_serve_path = run_frontend_serve(torch, np, dev, LLAVA)
+    free_card(torch)
+
+    print(f"  ({elapsed()} since the start)")
+    print(f"== 25. LM training: (a) card vs CPU, f32, two build_train_step steps; (b) "
+          f"{QWEN} at full width and depth, {TRAIN_QWEN_TOKENS} tokens; (c) {DBRX} cut "
+          f"to {TRAIN_DBRX_LAYERS} layer, {TRAIN_DBRX_TOKENS} tokens, adafactor; (d) "
+          f"train_lm_smoke; (e) one step in a 1x1 NCCL world")
+    train_agree = {}
+    for arch, reduced in ((QWEN, False), (MAMBA, False), (DBRX, True)):
+        train_agree[arch] = check_train_agreement(torch, np, dev, arch, reduced=reduced)
+        print(f"  ({elapsed()} since the start)")
+    free_card(torch)
+    print(f"  ({elapsed()} since the start)")
+    tq_launches, tq_path = run_train_main(torch, np, dev, QWEN, 24, TRAIN_QWEN_TOKENS,
+                                          TRAIN_QWEN_TIMED)
+    free_card(torch)
+    print(f"  ({elapsed()} since the start)")
+    td_launches, td_path = run_train_main(torch, np, dev, DBRX, TRAIN_DBRX_LAYERS,
+                                          TRAIN_DBRX_TOKENS, TRAIN_DBRX_TIMED)
+    free_card(torch)
+    print(f"  ({elapsed()} since the start)")
+    ts_launches, ts_path = run_train_smoke(torch, dev)
+    tw_rule, tw_launches = check_train_world(torch, np, dev)
     free_card(torch)
 
     launches_of = {"transe_l2": l2_launches, "transe_l1": l1_launches,
@@ -3653,7 +4092,9 @@ def main() -> int:
                    "jamba_serve": jb_serve_launches, "minicpm3_prefill": mla_pre_launches,
                    "minicpm3_serve": mla_serve_launches,
                    "whisper_prefill": wh_pre_launches, "whisper_serve": wh_serve_launches,
-                   "llava_prefill": lv_pre_launches, "llava_serve": lv_serve_launches}
+                   "llava_prefill": lv_pre_launches, "llava_serve": lv_serve_launches,
+                   "qwen_train": tq_launches, "dbrx_train": td_launches,
+                   "train_lm_smoke": ts_launches, "moe_train_world": tw_launches}
     kernels = []
     for r in rows:
         by_path = {p: n[r["name"]] for p, n in launches_of.items()}
@@ -3688,8 +4129,11 @@ def main() -> int:
                                 "whisper_prefill": wh_pre_path,
                                 "whisper_serve": wh_serve_path,
                                 "llava_prefill": lv_pre_path,
-                                "llava_serve": lv_serve_path}}))
-    print(f"chip_smoke: 24 phases in {elapsed()}")
+                                "llava_serve": lv_serve_path,
+                                "train": {"agreement": train_agree, "qwen": tq_path,
+                                          "dbrx": td_path, "train_lm_smoke": ts_path,
+                                          "moe_world": tw_rule}}}))
+    print(f"chip_smoke: 25 phases in {elapsed()}")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

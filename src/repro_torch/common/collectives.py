@@ -15,6 +15,20 @@ therefore S times the unsharded one (Adagrad cancels S in the step, not in
 its accumulator). This is the reference's behaviour, held by the 1x2 case
 of ``tests/test_torch_distributed.py``.
 
+The LM zoo's MoE layer over a model group (``models/moe.py``) is the
+exception. There JAX's ``shard_map(check_vma=False)`` around ``_moe_local``
+(``src/repro/models/moe.py:147-153``) gives gradients equal to those of
+the model without a mesh: ``jax.value_and_grad(model.loss)`` of the
+reduced Mixtral in f32, under ``build_model(cfg, mesh=mesh8)`` (4 x 2)
+and under ``build_model(cfg)`` from the same weights, agrees in every
+leaf (norm ratio 1.0000, largest difference 1.1e-6), with E = 4 (experts
+split over the ranks) and E = 3 (d_ff split). So its combine takes
+``psum_replicated`` (the sum, whose backward hands the replicated
+output's cotangent to each rank once) and its replicated inputs
+``replicated_input`` (the identity, whose backward sums each rank's
+partial cotangent over the group): Megatron's pair of conjugate
+operators. ``psum`` keeps the KGE reference's transpose.
+
 Gathers and all-to-alls are tiled, as every call of the reference is: the
 blocks of the group's ranks are concatenated in rank order. A group of one
 rank goes through the same calls. ``reduce_scatter`` is an all_reduce and a
@@ -117,6 +131,27 @@ class _AllToAll(torch.autograd.Function):
         return all_to_all_plain(g, ctx.group, concat_axis, split_axis), None, None, None
 
 
+class _PsumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ReplicatedInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over the group; its backward is again a sum over the group."""
     return _Psum.apply(x, group)
@@ -130,3 +165,20 @@ def all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
 def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
     """Tiled all_to_all; its backward the inverse all_to_all."""
     return _AllToAll.apply(x, group, split_axis % x.dim(), concat_axis % x.dim())
+
+
+def psum_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over the group of partial results whose sum every rank then
+    holds as one replicated value; its backward passes the cotangent on
+    unchanged (each rank's copy counts once), where ``psum``'s sums it
+    over the group. The MoE combine on the LM training route (module
+    docstring: the ``mesh8`` comparison)."""
+    return _PsumReplicated.apply(x, group)
+
+
+def replicated_input(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, equal on every rank of the group, as the input of a
+    computation that each rank does on its own part (its experts); its
+    backward sums the ranks' partial cotangents over the group, so every
+    rank's gradient upstream is the whole one."""
+    return _ReplicatedInput.apply(x, group)

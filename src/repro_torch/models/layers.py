@@ -74,11 +74,20 @@ class ParamDef:
         return x.to(device=device, dtype=self.dtype)
 
 
-def tree_map(fn, tree):
-    """``fn`` on every leaf of a nested dict, in insertion order."""
+def tree_map(fn, tree, *rest):
+    """``fn`` on every leaf of a nested dict, in insertion order; with
+    ``rest``, on the leaves of several trees of ``tree``'s structure (a
+    leaf of ``tree`` may stand over a subtree of the others)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
 
 
 def materialize(defs, gen: Optional[torch.Generator], device="cpu"):
@@ -135,3 +144,48 @@ def _gelu(x):  # jax.nn.gelu defaults to the tanh approximation
 
 def activation_fn(name: str):
     return {"silu": F.silu, "gelu": _gelu, "relu": F.relu}[name]
+
+
+# ----------------------------------------------------------------- cross entropy
+def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor,
+                         vocab: int) -> torch.Tensor:
+    """Mean next-token CE of logits (..., V) in f32. As in JAX, ``vocab``
+    is not read: the log-sum-exp runs over every column, the padded ones
+    too (their logits are not zero: ``tok_emb`` and ``unembed`` draw them
+    like the rest)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)
+
+
+def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor,
+                          chunk: int) -> torch.Tensor:
+    """JAX's streaming-softmax CE over vocab tiles of ``chunk`` columns: x
+    (B, T, D) final hidden states, unembed (D, Vp), labels (B, T). The (B,
+    T, Vp) logits are never held whole: each tile's body runs under
+    ``torch.utils.checkpoint``, so the backward recomputes its logits, as
+    JAX's ``@jax.checkpoint`` scan body does."""
+    from torch.utils.checkpoint import checkpoint
+
+    D, Vp = unembed.shape
+    assert Vp % chunk == 0, (Vp, chunk)
+    tiles = unembed.T.reshape(Vp // chunk, chunk, D)
+    B, T = labels.shape
+    labels = labels.long()
+    m = torch.full((B, T), -1e30, dtype=torch.float32, device=x.device)  # running max
+    s = torch.zeros((B, T), dtype=torch.float32, device=x.device)  # sum exp(l - m)
+    lab = torch.zeros((B, T), dtype=torch.float32, device=x.device)  # label logit
+
+    def body(m, s, lab, w, idx: int):
+        logits = matmul(x, w.T).float()  # (B, T, chunk)
+        cm = torch.maximum(m, logits.amax(dim=-1))
+        s = s * torch.exp(m - cm) + torch.exp(logits - cm[..., None]).sum(dim=-1)
+        loc = labels - idx * chunk
+        hit = (loc >= 0) & (loc < chunk)
+        ll = torch.gather(logits, -1, loc.clamp(0, chunk - 1)[..., None])[..., 0]
+        return cm, s, lab + torch.where(hit, ll, 0.0)
+
+    for i in range(Vp // chunk):
+        m, s, lab = checkpoint(body, m, s, lab, tiles[i], i, use_reentrant=False)
+    return torch.mean(torch.log(s) + m - lab)

@@ -121,13 +121,25 @@ def route(params: Params, xf: torch.Tensor, cfg: ArchConfig):
     return gates, topw / topw.sum(dim=-1, keepdim=True), topi
 
 
-def _expert(params: Params, j: int, x: torch.Tensor, act) -> torch.Tensor:
-    h = matmul(x, params["w_up"][j])
-    if "w_gate" in params:
-        h = act(matmul(x, params["w_gate"][j])) * h
+def _experts(params: Params):
+    """Each local expert's (w_up, w_gate or None, w_down): views of the
+    stacked tensors taken by one ``unbind``, whose backward stacks the
+    experts' gradients into one tensor (indexing each expert on its own
+    would, under autograd, add a zero-filled gradient of the whole stack
+    per expert)."""
+    up, down = params["w_up"].unbind(0), params["w_down"].unbind(0)
+    gate = params["w_gate"].unbind(0) if "w_gate" in params else (None,) * len(up)
+    return list(zip(up, gate, down))
+
+
+def _expert(w, x: torch.Tensor, act) -> torch.Tensor:
+    up, gate, down = w
+    h = matmul(x, up)
+    if gate is not None:
+        h = act(matmul(x, gate)) * h
     else:
         h = act(h)
-    return matmul(h, params["w_down"][j])
+    return matmul(h, down)
 
 
 def moe_dense_ref(params: Params, x: torch.Tensor, cfg: ArchConfig):
@@ -138,8 +150,8 @@ def moe_dense_ref(params: Params, x: torch.Tensor, cfg: ArchConfig):
     xf = x.reshape(B * S, D)
     _, topw, topi = route(params, xf, cfg)
     out = torch.zeros((B * S, D), dtype=torch.float32, device=x.device)
-    for e in range(cfg.n_experts):
-        eo = _expert(params, e, xf, act).float()
+    for e, w in enumerate(_experts(params)):
+        eo = _expert(w, xf, act).float()
         w = (topw * (topi == e)).sum(dim=-1)
         out = out + eo * w[:, None]
     return out.reshape(B, S, D).to(x.dtype), torch.zeros((), device=x.device)
@@ -163,18 +175,26 @@ def moe_local(params: Params, x: torch.Tensor, cfg: ArchConfig, e0: int = 0,
               group=None):
     """JAX's ``_moe_local`` on this rank's tokens ``x`` (B, S, D) and its
     experts ``e0 ..`` (the leading axis of the expert weights). With a
-    ``group`` the outputs are summed over it (JAX's psum over ``model``);
-    with none there is no collective, but the sum is still cast to x's type
-    where JAX's psum takes it. Returns (out (B, S, D) in x's type, aux)."""
+    ``group`` the outputs are summed over it (JAX's psum over ``model``),
+    and under autograd the gradients are JAX's: the sum's backward is the
+    identity, and ``x``'s and the router's sum the ranks' parts
+    (``collectives.psum_replicated``, ``replicated_input``); with none
+    there is no collective, but the sum is still cast to x's type where
+    JAX's psum takes it. Returns (out (B, S, D) in x's type, aux)."""
     B, S, D = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.moe_top_k
     act = activation_fn(cfg.activation)
     xf = x.reshape(T, D)
+    if group is not None:
+        # x and the router are equal on every rank, each rank computes its
+        # experts' part: the backward sums the parts (JAX's transpose)
+        xf = collectives.replicated_input(xf, group)
+        params = {**params, "router": collectives.replicated_input(params["router"], group)}
     gates, topw, topi = route(params, xf, cfg)
     cap = capacity(cfg, T)
     out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-    for j in range(params["w_up"].shape[0]):
+    for j, ws in enumerate(_experts(params)):
         e = e0 + j
         sel, slot = slots(topi, e, cap)
         w = (topw * (topi == e)).sum(dim=-1)
@@ -182,12 +202,12 @@ def moe_local(params: Params, x: torch.Tensor, cfg: ArchConfig, e0: int = 0,
         # slot, which nothing reads
         buf = torch.zeros((cap + 1, D), dtype=xf.dtype, device=x.device)
         buf.index_copy_(0, slot, xf)
-        eo = _expert(params, j, buf[:cap], act)  # (cap, D)
+        eo = _expert(ws, buf[:cap], act)  # (cap, D)
         keep = (sel & (slot < cap) & (w > 0)).float() * w
         out = out + eo[torch.clamp(slot, max=cap - 1)].float() * keep[:, None]
     out = out.to(x.dtype)
     if group is not None:
-        out = collectives.psum(out, group)
+        out = collectives.psum_replicated(out, group)
     out = out.float()
     me = gates.mean(dim=0)
     ce = torch.nn.functional.one_hot(topi, E).float().sum(dim=1).mean(dim=0)

@@ -58,11 +58,33 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _Clip01(torch.autograd.Function):
+    """``jnp.clip(x, 0, 1)`` with JAX's gradient: ``minimum(maximum(x, 0),
+    1)``, each of whose derivatives multiplies the cotangent by a mask (1
+    inside, 1/2 at a tie, 0 outside). ``torch.clamp``'s backward selects
+    instead, so a NaN cotangent at a clipped entry (a Mamba2 scan whose
+    masked decay overflows, ``kernels/ssd_scan/ref.py``) would give 0 here
+    and NaN in JAX."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, 1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo = torch.clamp_min(x, 0.0)
+        d_min = torch.where(lo < 1.0, 1.0, torch.where(lo == 1.0, 0.5, 0.0))
+        d_max = torch.where(x > 0.0, 1.0, torch.where(x == 0.0, 0.5, 0.0))
+        return g * d_min * d_max
+
+
 def _dt(x, params):
     """(..., H) f32: softplus(x @ w_dt + dt_bias) clipped to [0, 1] (the
     standard Mamba dt limit; an unbounded dt makes dt x ⊗ B explode)."""
     v = matmul(x, params["w_dt"]).float() + params["dt_bias"]
-    return torch.clamp(F.softplus(v), 0.0, 1.0)
+    return _Clip01.apply(F.softplus(v))
 
 
 def _gate_out(y, xh, z, params, dtype):
@@ -74,8 +96,13 @@ def _gate_out(y, xh, z, params, dtype):
     return matmul(y, params["w_out"])
 
 
-def mamba_train(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x (B, T, D) -> (B, T, D), the whole sequence at once."""
+def mamba_train(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                scan=ssd_scan) -> torch.Tensor:
+    """x (B, T, D) -> (B, T, D), the whole sequence at once. ``scan`` runs
+    the SSD scan: ``ssd_scan`` (the kernel on the card, forward only) by
+    default; the training route (``transformer.Model.loss``) names the
+    plain ``ssd_chunked_batched``, JAX's ``ssd_chunked_jnp`` route, which
+    autograd differentiates."""
     Bsz, T, _ = x.shape
     di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.n_mamba_heads, cfg.mamba_headdim
     xz = matmul(x, params["w_xz"])
@@ -87,7 +114,7 @@ def mamba_train(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tenso
     Bm, Cm = bc[..., :N], bc[..., N:]
     A = -torch.exp(params["A_log"].float())  # (H,)
     xh = xs.reshape(Bsz, T, H, Pd).float()
-    y = ssd_scan(xh, dt, A, Bm.float(), Cm.float())  # (B, T, H, P) f32
+    y = scan(xh, dt, A, Bm.float(), Cm.float())  # (B, T, H, P) f32
     return _gate_out(y, xh, z, params, x.dtype)
 
 

@@ -14,6 +14,7 @@ grid=None)`` returns a ``Model`` exposing
     defs / init(gen, device) / cast(params)  parameters (JAX's tree layout)
     forward(params, inputs, use_flash)       logits for prefill
     hidden(params, inputs)                   final hidden states
+    loss(params, inputs)                     next-token CE (JAX's train route)
     embed(params, tokens, inputs)            token (and patch) embeddings
     cache_defs(batch, seq) / init_caches     decode caches
     decode_step(params, caches, token, index) -> (logits, caches)
@@ -66,6 +67,14 @@ JAX's serve does. LLaVA (``frontend == vision``): ``embed`` writes
 ``inputs["patch_embeds"]`` (B, nf, d_model) over the first nf positions;
 decode feeds tokens only, as JAX's does.
 
+Training (``loss``, ``models/steps.py::build_train_step``) takes JAX's
+train route: attention and MLA on the chunked route, Mamba2 on the plain
+chunked scan (``ssm.mamba_train(scan=)``), so no kernel of the port runs
+under autograd; with ``cfg.remat`` each layer group, and each stacked
+encoder layer, runs under ``torch.utils.checkpoint``, as JAX remats its
+scan bodies. With a grid the MoE layers' collectives give JAX's
+gradients (``moe.moe_local``).
+
 ``params_from_arrays`` / ``params_to_arrays`` carry weights between the
 JAX package (nested numpy arrays) and the port; with a grid,
 ``params_from_arrays`` keeps this rank's slice of JAX's global arrays.
@@ -78,13 +87,17 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ArchConfig, FFNKind, Frontend, MixerKind
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as SSM
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_batched
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.layers import (
-    ParamDef, materialize, matmul, rmsnorm, stack_defs, torch_dtype, tree_map,
+    ParamDef, chunked_cross_entropy, cross_entropy_logits, materialize, matmul, rmsnorm,
+    stack_defs, torch_dtype, tree_map,
 )
 
 Params = Dict[str, Any]
@@ -162,6 +175,9 @@ class Model:
         self.n_groups = cfg.n_layers // self.period
         self.kinds = [self.pattern[i % self.period] for i in range(cfg.n_layers)]
         self.dtype = torch_dtype(cfg.dtype)
+        if cfg.parallel == "dp" and cfg.moe_period:
+            raise ValueError(f"{cfg.name}: dp mode takes no MoE layer (its experts "
+                             "need the model group), as JAX's asserts")
         self._build_defs()
 
     # ---------------------------------------------------------------- params
@@ -211,6 +227,13 @@ class Model:
         return tree_map(lambda a: a.to(self.dtype)
                         if a.dtype == torch.float32 and a.dim() >= 2 else a, params)
 
+    def sliced(self):
+        """Per parameter, ``(axis, parts)`` where it is this rank's slice of
+        a global tensor (an expert tensor over the grid's model group),
+        else None: what ``optim.dense.adafactor`` takes its group means
+        by."""
+        return tree_map(lambda d: (d.axis, d.parts) if d.parts > 1 else None, self.defs)
+
     def _layers(self, layers) -> Iterator[Dict[str, Any]]:
         """Each layer's tree, in order: views into the stack under
         ``scan_layers``."""
@@ -229,24 +252,30 @@ class Model:
             return x
         return x + M.ffn_apply(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
 
-    def _mix(self, x, p, kind: Kind, use_flash=False, enc_out=None):
+    def _mix(self, x, p, kind: Kind, use_flash=False, enc_out=None, scan=ssd_scan):
         """x plus the layer's mixer of it, then plus its cross-attention to
-        ``enc_out`` when given (the FFN's input)."""
+        ``enc_out`` when given (the FFN's input). ``scan`` is a Mamba2
+        layer's SSD scan (``ssm.mamba_train``)."""
         cfg = self.cfg
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
         if kind[0] == MixerKind.ATTN:
             h = A.attention_train(p["attn"], h, cfg, causal=True, use_flash=use_flash)
         else:
-            h = SSM.mamba_train(p["mamba"], h, cfg)
+            h = SSM.mamba_train(p["mamba"], h, cfg, scan=scan)
         x = x + h
         if enc_out is not None:
             h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
             x = x + A.attention_train(p["xattn"], h, cfg, kv_src=enc_out)
         return x
 
-    def _apply_layer(self, x, p, kind: Kind, use_flash=False, enc_out=None):
-        return self._ffn(self._mix(x, p, kind, use_flash=use_flash, enc_out=enc_out),
-                         p, kind)
+    def _apply_layer(self, x, p, kind: Kind, use_flash=False, enc_out=None, scan=ssd_scan):
+        return self._ffn(self._mix(x, p, kind, use_flash=use_flash, enc_out=enc_out,
+                                   scan=scan), p, kind)
+
+    def _remat(self) -> bool:
+        """JAX's ``cfg.remat``: recompute in the backward pass. Only where
+        autograd records (serving builds no graph)."""
+        return self.cfg.remat and torch.is_grad_enabled()
 
     def _unembed(self, cast, x):
         w = cast["tok_emb"].T if self.cfg.tie_embeddings else cast["unembed"]
@@ -278,11 +307,16 @@ class Model:
         layers = ((tree_map(lambda a: a[i], enc) for i in range(cfg.n_encoder_layers))
                   if self.enc_scan else
                   (enc[f"e{i}"] for i in range(cfg.n_encoder_layers)))
-        for p in layers:
+        def layer(x, p):
             h = rmsnorm(x, p["ln1"], cfg.norm_eps)
             x = x + A.attention_train(p["attn"], h, cfg, causal=False)
             h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-            x = x + M.ffn_apply(p["ffn"], h, cfg)
+            return x + M.ffn_apply(p["ffn"], h, cfg)
+
+        # JAX remats the encoder layer only where it scans the stack
+        remat = self.enc_scan and self._remat()
+        for p in layers:
+            x = checkpoint(layer, x, p, use_reentrant=False) if remat else layer(x, p)
         return rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
 
     def _inputs(self, cast, inputs):
@@ -292,12 +326,27 @@ class Model:
         return x, enc_out
 
     def hidden(self, params: Params, inputs: Dict[str, torch.Tensor],
-               use_flash: bool = False) -> torch.Tensor:
-        """Final hidden states (forward minus unembedding)."""
+               use_flash: bool = False, scan=ssd_scan) -> torch.Tensor:
+        """Final hidden states (forward minus unembedding). With
+        ``cfg.remat`` under autograd each layer group (the ``period``
+        layers JAX's scan body holds; all layers where JAX does not scan)
+        runs under ``torch.utils.checkpoint``, as JAX's ``_run_layers``
+        remats it: the same numbers, its activations recomputed in the
+        backward pass."""
         cast = self.cast(params)
         x, enc_out = self._inputs(cast, inputs)
-        for kind, p in zip(self.kinds, self._layers(cast["layers"])):
-            x = self._apply_layer(x, p, kind, use_flash=use_flash, enc_out=enc_out)
+        layers = list(zip(self.kinds, self._layers(cast["layers"])))
+
+        def group(x, *span):
+            for kind, p in span:
+                x = self._apply_layer(x, p, kind, use_flash=use_flash, enc_out=enc_out,
+                                      scan=scan)
+            return x
+
+        remat = self._remat()
+        for g0 in range(0, len(layers), self.period):
+            span = layers[g0:g0 + self.period]
+            x = checkpoint(group, x, *span, use_reentrant=False) if remat else group(x, *span)
         return rmsnorm(x, cast["final_ln"], self.cfg.norm_eps)
 
     def forward(self, params: Params, inputs: Dict[str, torch.Tensor],
@@ -306,6 +355,26 @@ class Model:
         Whisper's ``enc_frames`` and LLaVA's ``patch_embeds`` where given."""
         cast = self.cast(params)
         return self._unembed(cast, self.hidden(cast, inputs, use_flash=use_flash))
+
+    def loss(self, params: Params, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """JAX's ``Model.loss``: the mean next-token CE of
+        ``inputs["labels"]`` (position t predicts label t + 1), over the
+        full logits, or with ``cfg.ce_chunk`` over the hidden states and
+        ``chunked_cross_entropy``. The CE alone: JAX's docstring says "+
+        MoE aux implicitly", but its ``moe_apply`` drops ``aux``. The train
+        route is JAX's: attention and MLA on the chunked route (no flash),
+        Mamba2 on the plain ``ssd_chunked_batched``; no kernel of the port
+        runs, as JAX's training reaches no Pallas kernel."""
+        cfg = self.cfg
+        labels = inputs["labels"]
+        cast = self.cast(params)
+        x = self.hidden(cast, inputs, use_flash=False, scan=ssd_chunked_batched)
+        if cfg.ce_chunk:
+            w = cast["tok_emb"].T if cfg.tie_embeddings else cast["unembed"]
+            return chunked_cross_entropy(x[:, :-1], w.to(self.dtype), labels[:, 1:],
+                                         cfg.ce_chunk)
+        logits = self._unembed(cast, x)
+        return cross_entropy_logits(logits[:, :-1], labels[:, 1:], cfg.vocab_size)
 
     # ---------------------------------------------------------------- decode
     def cache_defs(self, batch: int, seq: int) -> Dict[str, Any]:

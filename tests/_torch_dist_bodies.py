@@ -203,7 +203,7 @@ def failing_sampler_run(grid, prog, batches, fail_at):
                       ordered=True)
 
 
-def lm_world_cases(grid, cases):
+def lm_world_cases(grid, cases, train_cases=()):
     """The LM zoo's mesh program on this grid, one case after another: for
     each (cfg, JAX's global weights as numpy arrays, prefill tokens (B, T),
     the ``use_flash`` settings, decode token arrays (B, steps)), this
@@ -212,7 +212,64 @@ def lm_world_cases(grid, cases):
     each case, {"prefill": [(logits (B, T, V), each MoE layer's expert
     choices (B*T, k)) for each use_flash], "decode": [teacher-forced
     logits (B, steps, V) for each decode batch]}, gathered over the
-    machines."""
+    machines; with ``train_cases``, (that list, ``lm_train_cases``'s)."""
+    out = _lm_serve_cases(grid, cases)
+    return (out, lm_train_cases(grid, train_cases)) if train_cases else out
+
+
+def lm_train_cases(grid, cases):
+    """``build_train_step(build_model(cfg, grid), lr, shape)`` from JAX's
+    global weights, one step a global batch, for each (cfg, weights as
+    numpy arrays, lr, InputShape, [global batches as dicts of numpy
+    arrays]). Returns, for each case, {"losses": [each step's loss],
+    "params": the parameters after the last step, each expert slice
+    gathered over the model group (JAX's global arrays), "spread": the
+    largest difference of any parameter entry between the ranks that hold
+    it (0.0 when every rank took the same step)}."""
+    # one thread on every rank: rank 0 runs in the calling process with its
+    # threads, and a reduction split over threads rounds differently
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return [_lm_train_case(grid, *case) for case in cases]
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _lm_train_case(grid, cfg, arrays, lr, shape, batches):
+    from repro_torch.common import collectives
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.models.transformer import build_model, params_from_arrays
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    model = build_model(cfg, grid=grid)
+    params = params_from_arrays(model, arrays)
+    step, opt = build_train_step(model, lr=lr, shape=shape)
+    state = opt.init(params)
+    losses = []
+    for b in batches:
+        params, state, met = step(params, state, {k: torch.from_numpy(v)
+                                                  for k, v in b.items()})
+        losses.append(float(met["loss"]))
+
+    def whole(d, p):
+        if d.parts == 1:
+            return p
+        return collectives.all_gather_plain(p, grid.model_group, axis=d.axis)
+
+    spread = 0.0
+    for d, p in zip(tree_leaves(model.defs), tree_leaves(params)):
+        group = grid.machine_group if d.parts > 1 else None
+        hi, lo = p.clone(), p.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        spread = max(spread, float((hi - lo).max()))
+    full = tree_map(whole, model.defs, params)
+    return {"losses": losses, "spread": spread,
+            "params": tree_map(lambda t: t.numpy(), full)}
+
+
+def _lm_serve_cases(grid, cases):
     from repro_torch.models.transformer import (
         build_model, forward_routes, gather_rows, machine_rows, params_from_arrays,
     )

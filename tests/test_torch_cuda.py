@@ -1175,3 +1175,63 @@ def test_dist_world_of_one_with_two_trainers_matches_cpu(cuda):
         diff = np.abs(got[name] - want[name])
         assert (diff > 1e-5 + 1e-5 * np.abs(want[name])).mean() <= 1e-3, name
         assert diff.max() <= 2 * cfg.lr * 6, name
+
+
+def _cpu_step_grads(model, params, batch, mb):
+    """The CPU step's gradient (the microbatches' mean), by path."""
+    from repro_torch.models.layers import tree_leaves, tree_map
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    for i in range(mb):
+        model.loss(params, {k: v[i] for k, v in batch.items()}).backward()
+    grads = tree_map(lambda p: p.grad.clone() / mb, params)
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(False)
+    return grads
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One ``build_train_step`` step of the reduced ``arch`` in f32 (2
+    microbatches of (2, 32); AdamW for Qwen and Mamba2, Adafactor for
+    Jamba) on the card and on the CPU from the same weights and batch: the
+    loss within 2e-5 x max(1, |loss|), the parameters within 1e-6 x
+    max(1, max|p|) + 1% of lr but where the CPU gradient lies within 2e-4 x
+    max(1, max|g|) of 0 (AdamW's lr x sign(g) may flip there, by 2 lr at
+    most); no kernel launch (the train route is JAX's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.steps import build_train_step
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32",
+                              param_dtype="float32", microbatches=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), params)
+    rng = _rng(3)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (2, 2, 32)), dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    lr = 1e-3
+    grads = _cpu_step_grads(model, params, batch, 2)
+    step, opt = build_train_step(model, lr=lr)
+    build.reset_launches()
+    card, _, got = step(card, opt.init(card), {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert sum(build.LAUNCHES.values()) == 0
+    params, _, want = step(params, opt.init(params), batch)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 2e-5 * max(
+        1.0, abs(float(want["loss"])))
+
+    def close(c, w, g):
+        d = (c.cpu() - w).abs()
+        near0 = g.abs() <= 2e-4 * max(1.0, float(g.abs().max()))
+        bad = d > 1e-6 * max(1.0, float(w.abs().max())) + 1e-2 * lr
+        assert not bool((bad & ~near0).any()) and bool((d <= 2 * lr + 1e-7).all())
+
+    tree_map(close, card, params, grads)

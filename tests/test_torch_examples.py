@@ -4,17 +4,22 @@ the CPU at their smallest flags, and the H100 spec the bounds read.
 Each twin keeps its original's own check: the quickstart's filtered MRR
 above 0.2 after its 900 steps, METIS cutting fewer edges than random in
 ``distributed_kge`` (8 gloo ranks, two samplers each), and the CLIs'
-exit codes for ``train_fb15k_scale`` and ``serve_lm``.
+exit codes for ``train_fb15k_scale`` and ``serve_lm``, and
+``train_lm_smoke``'s last loss below ln 64 - 0.5 after its 150 steps of
+the reduced H2O-Danube-1.8B on the planted bigram stream.
 """
 
 import importlib.util
+import math
 from pathlib import Path
 
 import torch
 
 from repro.common.hw import HwSpec as JaxHwSpec
 from repro_torch.common.hw import H100_SXM, HwSpec
-from repro_torch.examples import distributed_kge, quickstart, serve_lm, train_fb15k_scale
+from repro_torch.examples import (
+    distributed_kge, quickstart, serve_lm, train_fb15k_scale, train_lm_smoke,
+)
 
 torch.set_num_threads(2)
 
@@ -47,6 +52,12 @@ def test_serve_lm_runs_the_cli(capfd):
     out = capfd.readouterr().out
     assert "arch=qwen1.5-0.5b reduced=True batch=4" in out
     assert "24 steps in " in out
+
+
+def test_train_lm_smoke_beats_the_uniform_floor(capsys):
+    losses = train_lm_smoke.main(["--device", "cpu"])
+    assert len(losses) == 150 and losses[-1] < math.log(64) - 0.5 < losses[0]
+    assert capsys.readouterr().out.strip().endswith("OK")
 
 
 def test_hw_spec_holds_the_rates_the_bounds_use():

@@ -46,7 +46,8 @@ def test_port_modules_exist():
               "repro_torch.kernels.ssd_scan.ref", "repro_torch.core.distributed",
               "repro_torch.core.graph_part", "repro_torch.core.rel_part",
               "repro_torch.embeddings.kvstore", "repro_torch.common.collectives",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.optim.dense",
+              "repro_torch.optim.api", "repro_torch.examples.train_lm_smoke"):
         assert m in mods
 
 

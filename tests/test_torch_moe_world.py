@@ -15,7 +15,26 @@ replicates a batch that does not split); on (1, 2), the chunked prefill
 and decode at batch 2. Logits within 2e-5 x max(1, max|logit|), the same
 expert choices and the same dropped token-choices. One world of each shape
 runs every case (module fixtures); the rank body is
-``tests/_torch_dist_bodies.py::lm_world_cases``."""
+``tests/_torch_dist_bodies.py::lm_world_cases``.
+
+The same worlds take ``build_train_step`` steps (A10.5b) against JAX's
+``build_train_step(build_model(cfg, mesh))`` from JAX's weights on the
+same global batches, in f32: on mesh8 JAX's ``test_train_step_on_mesh``
+Qwen (4 stacked layers, remat, 2 microbatches) and
+``test_train_step_fsdp_moe``'s Mixtral at E = 4 and E = 3 (capacity
+factor 4: no drops) with AdamW, the Mixtral again with SGD at lr 0.5 (a
+gradient scaled by S would show in every parameter), reduced DBRX with
+Adafactor at E = 4 and E = 3 (its statistics reduced over the model
+group), and a ``parallel="dp"`` Qwen (the batch over all 8 ranks); on
+(1, 2) the Mixtral and the DBRX at E = 3. Each step's
+loss within 2e-5 x max(1, |loss|); the parameters under the flip rule
+(``tests/test_torch_lm_train.py``) with AdamW, else within 2e-4 of the
+largest move JAX's steps made (at least lr a step; with SGD that is 2e-4
+x max(1, max|g|) x lr a step) plus 1e-6 x max(1, max|p|); every rank that
+holds a parameter holds the same bits. SGD and Adafactor take two steps, AdamW
+one: once a first step has flipped entries (2 lr apart), the stacked
+Qwen's gradients of ``bk``, pure cancellation noise (a key bias shifts
+every score of a query alike), part by more than the rule's tolerance."""
 
 import dataclasses
 
@@ -31,7 +50,10 @@ from repro.common.config import FFNKind as JFFNKind
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.models import attention as JA
 from repro.models.layers import rmsnorm as jrmsnorm
+from repro.common.config import InputShape as JInputShape
+from repro.models import steps as JS
 from repro.models.transformer import build_model as jax_build
+from repro_torch.common.config import InputShape
 from repro_torch.configs import ARCHS
 from repro_torch.launch.mesh import ProcessGrid, run_world
 from repro_torch.models import moe as M
@@ -40,6 +62,7 @@ from repro_torch.models.transformer import (
 )
 
 import _torch_dist_bodies as B
+from test_torch_lm_train import GRAD_TOL, LOSS_TOL, PARAM_TOL, flip_rule
 
 torch.set_num_threads(2)
 
@@ -117,9 +140,73 @@ def _jax_program(jcfg, mesh, tokens, decodes, flash):
     return jax.tree.map(np.asarray, jp), prefill, decoded
 
 
-def _world(M_, S_, experts, decode_batches, flash=FLASH):
+# train cases: (arch, config changes, lr, (seq_len, global batch)); AdamW
+# one step, the others two (module docstring)
+TRAIN = {
+    "qwen_adamw": ("qwen1.5-0.5b", dict(microbatches=2, scan_layers=True, n_layers=4,
+                                        remat=True), 1e-3, (32, 16)),
+    "mixtral_e4_adamw": (ARCH, dict(n_experts=4, microbatches=2, fsdp=True,
+                                    capacity_factor=4.0), 1e-3, (8, 32)),
+    "mixtral_e3_adamw": (ARCH, dict(n_experts=3, microbatches=2, fsdp=True,
+                                    capacity_factor=4.0), 1e-3, (8, 32)),
+    "mixtral_e4_sgd": (ARCH, dict(n_experts=4, microbatches=2, fsdp=True,
+                                  capacity_factor=4.0, optimizer="sgd"), 0.5, (8, 32)),
+    "dbrx_e4_adafactor": ("dbrx-132b", dict(n_experts=4, microbatches=2,
+                                            capacity_factor=4.0), 1e-3, (8, 32)),
+    "dbrx_e3_adafactor": ("dbrx-132b", dict(n_experts=3, microbatches=2,
+                                            capacity_factor=4.0), 1e-3, (8, 32)),
+    "qwen_dp_adamw": ("qwen1.5-0.5b", dict(microbatches=2, n_layers=2, parallel="dp"),
+                      1e-3, (16, 16)),
+}
+TRAIN_42 = sorted(TRAIN)
+TRAIN_12 = ["dbrx_e3_adafactor", "mixtral_e3_adamw"]
+
+
+def _steps(case):
+    return 1 if _train_cfgs(case)[1].optimizer == "adamw" else 2
+
+
+def _train_cfgs(case):
+    arch, kw, lr, (seq, batch) = TRAIN[case]
+    kw = dict(kw, dtype="float32", param_dtype="float32")
+    return (dataclasses.replace(JAX_ARCHS[arch].reduced(), **kw),
+            dataclasses.replace(ARCHS[arch].reduced(), **kw), lr,
+            JInputShape("t", seq, batch, "train"), InputShape("t", seq, batch, "train"))
+
+
+def _jax_train(case, mesh, seed):
+    """JAX's train program on ``mesh`` from seed 0: (its weights as numpy
+    arrays, the global batches, each step's loss, the parameters after the
+    last step, with AdamW each step's gradient of the whole batch, which
+    the flip rule reads)."""
+    jcfg, cfg, lr, jshape, _ = _train_cfgs(case)
+    jm = jax_build(jcfg, mesh=mesh)
+    step, opt = JS.build_train_step(jm, lr=lr, shape=jshape)
+    rng = np.random.default_rng(seed)
+    defs = JS.input_defs(jcfg, jshape, jm)
+    batches = [{k: rng.integers(0, cfg.vocab_size, d.shape).astype(np.int32)
+                for k, d in defs.items()} for _ in range(_steps(case))]
+    losses, grads = [], []
+    with set_mesh(mesh):
+        jp = jm.init(jax.random.key(0))
+        arrays = jax.tree.map(np.asarray, jp)
+        js = opt.init(jp)
+        jstep, vg = jax.jit(step), jax.jit(jax.value_and_grad(jm.loss))
+        for b in batches:
+            if jcfg.optimizer == "adamw":
+                flat = {k: jnp.asarray(v.reshape((-1,) + v.shape[2:]))
+                        for k, v in b.items()}
+                grads.append(jax.tree.map(np.asarray, vg(jp, flat)[1]))
+            jp, js, met = jstep(jp, js, {k: jnp.asarray(v) for k, v in b.items()})
+            losses.append(float(met["loss"]))
+        final = jax.tree.map(np.asarray, jp)
+    return arrays, batches, losses, final, grads
+
+
+def _world(M_, S_, experts, decode_batches, flash=FLASH, train=()):
     """One M_ x S_ gloo world for every case; returns {E: (cfg, JAX's
-    results, the port's)}."""
+    results, the port's)} and, under "train", {case: (JAX's train program,
+    the port's)}."""
     rng = np.random.default_rng(0)
     cases, want = [], {}
     for E in experts:
@@ -130,18 +217,25 @@ def _world(M_, S_, experts, decode_batches, flash=FLASH):
                                                 flash)
         cases.append((cfg, arrays, tokens, flash, decodes))
         want[E] = (cfg, prefill, decoded)
-    got = run_world(M_, S_, B.lm_world_cases, (cases,), timeout_s=120)
-    return {E: (*want[E], g) for E, g in zip(experts, got)}
+    tcases, twant = [], {}
+    for i, case in enumerate(train):
+        _, cfg, lr, _, shape = _train_cfgs(case)
+        twant[case] = _jax_train(case, _mesh(M_, S_), seed=10 + i)
+        tcases.append((cfg, twant[case][0], lr, shape, twant[case][1]))
+    got, tgot = run_world(M_, S_, B.lm_world_cases, (cases, tcases), timeout_s=120)
+    out = {E: (*want[E], g) for E, g in zip(experts, got)}
+    out["train"] = {c: (twant[c], g) for c, g in zip(train, tgot)}
+    return out
 
 
 @pytest.fixture(scope="module")
 def world42(mesh8):
-    return _world(4, 2, (4, 3), (8, 2))
+    return _world(4, 2, (4, 3), (8, 2), train=TRAIN_42)
 
 
 @pytest.fixture(scope="module")
 def world12():
-    return _world(1, 2, (4, 3), (2,), flash=(False,))
+    return _world(1, 2, (4, 3), (2,), flash=(False,), train=TRAIN_12)
 
 
 def _close(got, want):
@@ -215,6 +309,63 @@ def test_prefill_and_decode_match_jax_1x2(world12, E):
     for g, w in zip(got["prefill"][0][1], prefill[0][1]):
         assert np.array_equal(g.numpy(), w)
     _close(got["decode"][0], decoded[0])
+
+
+# ------------------------------------------------------------ train steps
+def _paths(tree, pre=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{pre}/{k}")
+    else:
+        yield pre, tree
+
+
+def _train_matches(world, case, tag):
+    (arrays, _, losses, final, grads), got = world["train"][case]
+    _, cfg, lr, _, _ = _train_cfgs(case)
+    assert len(got["losses"]) == len(losses) == _steps(case)
+    for g, w in zip(got["losses"], losses):
+        assert abs(g - w) <= LOSS_TOL * max(1.0, abs(w)), (case, g, w)
+    assert got["spread"] == 0.0
+    want = dict(_paths(final))
+    mine = dict(_paths(got["params"]))
+    assert set(mine) == set(want)
+    if cfg.optimizer == "adamw":
+        flip_rule(f"{tag} {case}", mine, want, [dict(_paths(g)) for g in grads], lr)
+        return
+    start, steps = dict(_paths(arrays)), _steps(case)
+    for k, w in want.items():
+        move = max(lr * steps, float(np.abs(w - start[k]).max()))
+        tol = GRAD_TOL * move + PARAM_TOL * max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(mine[k], w, rtol=0, atol=tol, err_msg=f"{case} {k}")
+    # the step moved the parameters by more than the tolerance
+    assert max(float(np.abs(want[k] - start[k]).max()) for k in want) > 1e-4
+
+
+@pytest.mark.parametrize("case", TRAIN_42)
+def test_train_step_matches_jax_mesh8(world42, case):
+    _train_matches(world42, case, "4x2")
+
+
+@pytest.mark.parametrize("case", TRAIN_12)
+def test_train_step_matches_jax_1x2(world12, case):
+    _train_matches(world12, case, "1x2")
+
+
+def test_train_rows_and_groups():
+    """A machine's rows of a global batch, and the ranks the gradients are
+    averaged over: the machine group in tp mode, every rank in dp."""
+    from repro_torch.models.steps import data_parallel, n_machines_of
+
+    _, cfg = _cfgs(4)
+    for r in range(8):
+        g = _grid(4, 2, r)
+        assert data_parallel(build_model(cfg, grid=g))[1:] == (r // 2, 4)
+    _, qcfg, _, _, _ = _train_cfgs("qwen_dp_adamw")
+    m = build_model(qcfg, grid=_grid(4, 2, 5))
+    assert data_parallel(m)[1:] == (5, 8) and n_machines_of(m) == 8
+    with pytest.raises(ValueError, match="dp mode takes no MoE"):
+        build_model(dataclasses.replace(cfg, parallel="dp"))
 
 
 # --------------------------------------------------------- rows and weights
