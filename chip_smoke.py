@@ -237,11 +237,21 @@ Phases, each fatal on failure (exit code 1, no result line):
      into GEMMs, the chunked attention's elementwise work and the rest,
      peak memory and 6 N D model FLOPs against the bf16 peak; (c) the same
      for DBRX-132B cut to 1 layer (4.49 B parameters, bf16 weights,
-     Adafactor, 16 microbatches of (1, 1024), 2 timed steps); (d)
+     Adafactor, 16 microbatches of (1, 1024), 2 timed steps); (b) and (c)
+     each run in a process of its own (``run_train_child``); (d)
      ``repro_torch.examples.train_lm_smoke`` on the card, with its own
      assertion; (e) A10.5b: JAX's ``test_train_step_fsdp_moe`` Mixtral
      (reduced, f32), one step in a 1x1 NCCL world on the card and a 1x1
      gloo world on the CPU under ``train_rule``.
+ 26. tooling: (a) phase 8's Qwen1.5-0.5B (4, 2048) flash prefill counted
+     on the card and on meta (``launch/hlo_analysis.trace``): equal matmul
+     FLOPs and flash records, 24 launches, the roofline's compute term at
+     most the measured device time, the meta peak bytes beside
+     ``max_memory_allocated``; (b) a TransE_l1 FB15k step of a 1x1 NCCL
+     world and the 2-layer Mamba2 (1, 256) prefill, card against meta; the
+     seam's host cost a wrapper call; (c) last, alone on the host's CPU,
+     ``python -m repro_torch.launch.dryrun`` of ``DRYRUN_CASES`` on the
+     production grid, each exiting 0.
 
 The routing rule, for every comparison that involves MoE layers: a token
 whose top-k expert set differs between the two runs in any MoE layer sits
@@ -363,7 +373,6 @@ ROUTE_TOL_F32 = 1e-3
 # at full width, the share of tokens two f32 runs must keep within 2e-3 x
 # max(1, max|logit|) (the rest move through near-ties; run_moe_prefill)
 AGREE_SHARE = 0.9
-SSD_CHUNK = 64  # the rows of a chunk in ssd_ops' count (the kernel's are 64 too)
 SSD_REF_TOL = 1e-4  # against ssd_ref: JAX's bound (tests/test_kernels.py:94-99)
 # phase 25: LM training. (a) card vs CPU in f32: full width cut to 2 layers
 # on (4, 128) tokens in 2 microbatches; (b) Qwen1.5-0.5B at all 24 layers on
@@ -373,6 +382,12 @@ TRAIN_AGREE_TOKENS, TRAIN_AGREE_MB = (4, 128), 2
 TRAIN_QWEN_TOKENS, TRAIN_QWEN_TIMED = (16, 2048), 3
 TRAIN_DBRX_LAYERS, TRAIN_DBRX_TOKENS, TRAIN_DBRX_TIMED = 1, (16, 1024), 2
 TRAIN_LR = 1e-4  # build_train_step's default, JAX's
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"  # phase 26 (c): rows and logs
+DRYRUN_CASES = {  # phase 26 (c): the CLI on the production grid
+    "qwen_prefill_32k": ["--arch", "qwen1.5-0.5b", "--shape", "prefill_32k"],
+    "mixtral_train_4k": ["--arch", "mixtral-8x7b", "--shape", "train_4k"],
+    "kge_fb15k_transe_l1": ["--kge", "fb15k", "--kge-model", "transe_l1"],
+}
 LOSS_TOL, GRAD_TOL, PARAM_TOL = 2e-5, 2e-4, 1e-6
 
 TPU_KERNEL = {
@@ -745,6 +760,59 @@ def run_train_main(torch, np, dev, arch, n_layers, tokens, timed):
     return launches, summary
 
 
+TRAIN_MAIN_FLAG = "--train-main"  # phase 25 (b), (c): the child's argument
+TRAIN_RESULT = "TRAIN_MAIN_RESULT "  # the child's last line: launches, summary
+
+
+def run_train_child(arch, n_layers, tokens, timed):
+    """Phase 25 (b) or (c) in a process of its own: ``python3 chip_smoke.py
+    --train-main '[arch, n_layers, [B, T], timed]'`` runs ``run_train_main``
+    on the card, its lines printed here as they come, and hands back the
+    launches and the summary on its last line. In the process of the whole
+    run, torch.profiler's stop crashed it now and then (SIGSEGV) at this
+    phase's trace of a Qwen microbatch; a fresh process never did."""
+    cmd = [sys.executable, "-X", "faulthandler", str(Path(__file__).resolve()),
+           TRAIN_MAIN_FLAG, json.dumps([arch, n_layers, list(tokens), timed])]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    result = None
+    try:
+        for line in proc.stdout:
+            if line.startswith(TRAIN_RESULT):
+                result = json.loads(line[len(TRAIN_RESULT):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(rc == 0 and result is not None,
+          f"phase 25, {arch}: its process exited {rc} without a result")
+    return result["launches"], result["summary"]
+
+
+def train_child_main(spec: str) -> int:
+    """The child of ``run_train_child``: ``main``'s set-up, then one
+    ``run_train_main``."""
+    import torch
+
+    check(torch.cuda.is_available(), "phase 25's process sees no CUDA device")
+    arch, n_layers, tokens, timed = json.loads(spec)
+    sys.path.insert(0, str(ROOT / "src"))
+    load_rates()
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.init()  # reset_peak_memory_stats needs the allocator up
+    torch.zeros(1, device=dev)
+    launches, summary = run_train_main(torch, np, dev, arch, n_layers, tuple(tokens), timed)
+    print(TRAIN_RESULT + json.dumps({"launches": launches, "summary": summary},
+                                    default=float), flush=True)
+    return 0
+
+
 def run_train_smoke(torch, dev):
     """Phase 25(d): ``python -m repro_torch.examples.train_lm_smoke`` in
     process on the card, with its own assertion (the last loss below ln 64
@@ -897,6 +965,14 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float = None, more=()):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_of(kc):
+    """``bound`` of a kernel's work as its ``cost()`` function gives it
+    (``kernels/*/cost.py``: the one formula the dry run reads too)."""
+    rate = {"fp32": FP32_OPS_PER_S, "tf32x3": TF32X3_OPS_PER_S, "bf16": BF16_OPS_PER_S}
+    return bound(kc.bytes, kc.flops, rate[kc.unit],
+                 more=[(ops, rate[unit]) for ops, unit in kc.more])
+
+
 def _max_err(torch, got, want):
     """(max |got - want|, the tolerance 2e-5 x max(1, max |want|))."""
     torch.cuda.synchronize()
@@ -908,6 +984,7 @@ def _max_err(torch, got, want):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def check_pairwise(torch, dev, gen):
+    from repro_torch.kernels.kge_score.cost import pairwise_cost
     from repro_torch.kernels.kge_score.ops import pairwise_kernel, pairwise_l1_plan
     from repro_torch.kernels.kge_score.ref import pairwise_ref
 
@@ -931,14 +1008,9 @@ def check_pairwise(torch, dev, gen):
         tm = timings(torch, lambda: pairwise_kernel(mode, o, n),
                      lambda: pairwise_ref(mode, o, n), lambda: library[mode](o, n),
                      plain_reps=plain_reps)
-        n_bytes = 4 * G * (B * D + K * D + B * K)
-        if mode == "l1":  # fp32 units: |o - n| and the sum
-            b_ms, b_by = bound(n_bytes, 3 * G * B * K * D)
-        else:  # the product on the tensor cores (3xTF32); l2sq's norms and
-            # epilogue on the fp32 units
-            norms = [(G * (2 * (B + K) * D + 3 * B * K), FP32_OPS_PER_S)]
-            b_ms, b_by = bound(n_bytes, 2 * G * B * K * D, TF32X3_OPS_PER_S,
-                               more=norms if mode == "l2sq" else ())
+        # l1 on the fp32 units; dot and l2sq's product on the tensor cores
+        # (3xTF32), l2sq's norms and epilogue beside it on the fp32 units
+        b_ms, b_by = bound_of(pairwise_cost(mode, G, B, K, D))
         return dict(bound_ms=b_ms, bound_by=b_by, shape=f"{G}x{B}x{K}x{D}", **tm)
 
     for mode in ("dot", "l2sq", "l1"):
@@ -981,6 +1053,7 @@ def check_l1_bwd(torch, dev, gen):
     and g, cdist transposed), and the pair as the path asks for it (both
     products; the yardstick the two cdist backward calls in sequence), with
     the plan each launch takes there."""
+    from repro_torch.kernels.kge_score.cost import l1_bwd_cost
     from repro_torch.kernels.kge_score.ops import (
         l1_bwd_kernel, l1_bwd_pair_plan, l1_bwd_plan,
     )
@@ -1025,10 +1098,6 @@ def check_l1_bwd(torch, dev, gen):
     library["l1_bwd_pair"] = lambda: (library["l1_bwd_do"](), library["l1_bwd_dn"]())
     need = {"l1_bwd_do": dict(need_dn=False), "l1_bwd_dn": dict(need_do=False),
             "l1_bwd_pair": {}}
-    outs = {"l1_bwd_do": B * D, "l1_bwd_dn": K * D, "l1_bwd_pair": (B + K) * D}
-    # a sign, a product and a sum an element for each product; the pair's
-    # least work takes the sign once
-    ops = {"l1_bwd_do": 3, "l1_bwd_dn": 3, "l1_bwd_pair": 5}
     want = dict(zip(errs, l1_grads_ref(o, n, g)))
     rows = []
     for name in need:
@@ -1040,8 +1109,9 @@ def check_l1_bwd(torch, dev, gen):
         print(f"  {name}: _cdist_backward vs plain max_abs_err {lib_err:.3e}")
         tm = timings(torch, lambda: l1_bwd_kernel(o, n, g, **need[name]),
                      lambda: l1_grads_ref(o, n, g, **need[name]), library[name])
-        b_ms, b_by = bound(4 * G * (B * D + K * D + B * K + outs[name]),
-                           ops[name] * G * B * K * D)
+        # a sign, a product and a sum an element for each product; the
+        # pair's least work takes the sign once
+        b_ms, b_by = bound_of(l1_bwd_cost(G, B, K, D, **need[name]))
         rows.append(dict(name=name, source="src/repro_torch/csrc/l1_bwd.cu",
                          replaces=TPU_KERNEL[name], max_abs_err=errs[name][0],
                          tol=errs[name][1], bound_ms=b_ms, bound_by=b_by,
@@ -1109,6 +1179,7 @@ def dist_path_ids(torch, np, kg):
 
 
 def check_dedup(torch, np, dev, gen, kg):
+    from repro_torch.kernels.sparse_adagrad.cost import dedup_cost
     from repro_torch.kernels.sparse_adagrad.ops import dedup_aggregate
     from repro_torch.kernels.sparse_adagrad.ref import dedup_aggregate_ref
 
@@ -1152,9 +1223,7 @@ def check_dedup(torch, np, dev, gen, kg):
         tm = timings(torch, lambda: dedup_aggregate(ids, g),
                      lambda: dedup_aggregate_ref(ids, g),
                      lambda: torch.zeros(n + 1, D, device=dev).index_add_(0, inv, g))
-        n_bytes = 4 * (2 * n + 2 * n * D)
-        n_ops = n * n + n * D  # id compares + row adds
-        b_ms, b_by = bound(n_bytes, n_ops)
+        b_ms, b_by = bound_of(dedup_cost(n, D))  # id compares + row adds
         timed[case] = dict(shape=f"n={n} D={D}", bound_ms=b_ms, bound_by=b_by, **tm)
         print(f"    {_fmt(timed[case])}")
     return [dict(name="dedup_aggregate", source="src/repro_torch/csrc/dedup_aggregate.cu",
@@ -1164,6 +1233,7 @@ def check_dedup(torch, np, dev, gen, kg):
 
 
 def check_update(torch, dev, gen):
+    from repro_torch.kernels.sparse_adagrad.cost import update_cost
     from repro_torch.kernels.sparse_adagrad.ops import fused_sparse_adagrad
     from repro_torch.kernels.sparse_adagrad.ref import fused_update_ref
 
@@ -1207,9 +1277,8 @@ def check_update(torch, dev, gen):
 
         tm = timings(torch, lambda: fused_sparse_adagrad(kt, kq, ids, g, lr, eps),
                      lambda: fused_update_ref(pt, pq, ids, g, lr, eps), library)
-        n_bytes = 4 * (n + 5 * v * D)  # ids; grad, table, gsq rows in; two rows out
-        n_ops = 7 * v * D
-        b_ms, b_by = bound(n_bytes, n_ops)
+        # ids; grad, table, gsq rows in; two rows out: this run's valid rows
+        b_ms, b_by = bound_of(update_cost(n, D, valid=v))
         timed[n] = dict(bound_ms=b_ms, bound_by=b_by, **tm)
         print(f"    {_fmt(timed[n])}, {v} valid rows")
     return [dict(name="fused_update", source="src/repro_torch/csrc/fused_update.cu",
@@ -1244,6 +1313,7 @@ def check_flash(torch, dev, gen):
     mask of the window and offset cases."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.cost import flash_cost
     from repro_torch.kernels.flash_attention.ops import flash_attention_kernel
     from repro_torch.kernels.flash_attention.ref import mha_ref
 
@@ -1287,13 +1357,13 @@ def check_flash(torch, dev, gen):
         tm = timings(torch, lambda: flash_attention_kernel(q, k, v, True, win, qoff),
                      lambda: mha_ref(q, k, v, causal=True, window=win, q_offset=qoff),
                      library, reps=10 if big else 50, plain_reps=3 if big else 20)
-        n_bytes = q.element_size() * 2 * (q.numel() + k.numel())  # q, k, v, o
-        n_ops = 4 * dh * pairs
+        kc = flash_cost(B, H, Hkv, T, S, dh, True, win, qoff, q.element_size())
+        check(kc.flops == 4 * dh * pairs, f"flash_cost's pairs are not the mask's ({name})")
         # f32 runs as 3xTF32 on the tensor cores; its bound at fp32's rate
         # outside them is kept beside it
         f32 = dtype == torch.float32
-        b_ms, b_by = bound(n_bytes, n_ops, TF32X3_OPS_PER_S if f32 else BF16_OPS_PER_S)
-        more = dict(fp32_bound_ms=bound(n_bytes, n_ops)[0]) if f32 else {}
+        b_ms, b_by = bound_of(kc)
+        more = dict(fp32_bound_ms=bound(kc.bytes, kc.flops)[0]) if f32 else {}
         timed[name] = dict(shape=f"{B}x{H}x{Hkv}x{T}x{S}x{dh} w{win} off{qoff} {dt}",
                            bound_ms=b_ms, bound_by=b_by, **more, pairs=pairs, err=e,
                            gate_share=share, sdpa_err=lib_err, sdpa_gate_share=lib_share,
@@ -1306,26 +1376,13 @@ def check_flash(torch, dev, gen):
                                               if k != main})]
 
 
-def ssd_ops(B, T, H, P, N):
-    """Operations the SSD scan needs at the kernel's chunks, each as long as
-    this run's T makes it, counting (as the flash row does) only the pairs
-    that the causal mask keeps: per (b, chunk) of k rows the Gram matrix's
-    lower triangle once, k (k + 1) N, and per head the intra-chunk product
-    over the same triangle, k (k + 1) P; the inter-chunk product, 2 k N P,
-    for every chunk but the first (the state is 0 there) and the state
-    update, 2 k P N, for every chunk but the last (nothing reads it)."""
-    rows = [min(SSD_CHUNK, T - t0) for t0 in range(0, T, SSD_CHUNK)]
-    tri = sum(k * (k + 1) * (N + H * P) for k in rows)
-    carried = sum(rows[1:]) + sum(rows[:-1])  # rows that meet a carried state
-    return B * (tri + H * 2 * N * P * carried)
-
-
 def check_ssd(torch, dev, gen):
     """ssd_scan.cu against the plain chunked version within 2e-5 x max(1,
     max|plain|), and against the step-by-step ``ssd_ref`` within 1e-4 x
     max(1, max|ref|), at SSD_SHAPES, on inputs of JAX's sweep (dt in [0.05,
     0.15], A in [-2, -1], B and C of std 0.5). No single PyTorch call
     computes the scan, so the row has no library time."""
+    from repro_torch.kernels.ssd_scan.cost import ssd_cost
     from repro_torch.kernels.ssd_scan.ops import ssd_scan_kernel
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_batched, ssd_ref
 
@@ -1355,11 +1412,10 @@ def check_ssd(torch, dev, gen):
         tm = timings(torch, lambda: ssd_scan_kernel(x, dt, A, Bm, Cm),
                      lambda: ssd_chunked_batched(x, dt, A, Bm, Cm), None,
                      reps=10 if big else 50, plain_reps=3 if big else 20)
-        n_bytes = 4 * (2 * x.numel() + dt.numel() + 2 * Bm.numel() + H)
-        n_ops = ssd_ops(B, T, H, P, N)
-        b_ms, b_by = bound(n_bytes, n_ops, TF32X3_OPS_PER_S)  # 3xTF32 products
+        kc = ssd_cost(B, T, H, P, N)  # the products as 3xTF32, the causal pairs
+        b_ms, b_by = bound_of(kc)
         timed[name] = dict(shape=f"{B}x{T}x{H}x{P}x{N}", bound_ms=b_ms, bound_by=b_by,
-                           fp32_bound_ms=bound(n_bytes, n_ops)[0], **tm)
+                           fp32_bound_ms=bound(kc.bytes, kc.flops)[0], **tm)
         print(f"    {_fmt(timed[name])}")
     main = next(iter(SSD_SHAPES))
     return [dict(name="ssd_scan", source="src/repro_torch/csrc/ssd_scan.cu",
@@ -3292,13 +3348,33 @@ def check_mla_agreement(torch, np, dev):
           f"prefill) logits disagree at the 2-layer cut")
 
 
+def held_event_ms(torch, fn, reps):
+    """``event_ms`` of ``reps`` calls that the host enqueues while a
+    device-side sleep holds the stream (``compat.device_sleep``, ~50 ms),
+    so the calls run back to back whatever the host's speed: their CUDA-
+    event time is their device time."""
+    from repro_torch.common.compat import device_sleep
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    device_sleep(10 ** 8)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def traced_alone(torch, label, fn, reps=3):
-    """(device ms, of which GEMMs) of one call of ``fn``, traced alone. The
-    call keeps the card busy, so its CUDA-event time is its device time: a
-    trace whose kernels sum to less than 90% of it has dropped events (as
-    torch.profiler now and then does) and is taken again, up to three
-    times."""
-    ev = event_ms(torch, fn, reps=reps, warmup=1)
+    """(device ms, of which GEMMs) of one call of ``fn``, traced alone. Its
+    CUDA-event time, taken with the calls held back to back
+    (``held_event_ms``), is its device time: a trace whose kernels sum to
+    less than 90% of it has dropped events (as torch.profiler now and then
+    does) and is taken again, up to three times."""
+    ev = held_event_ms(torch, fn, reps)
     for _ in range(3):
         kern = trace_by_kernel(torch, fn, reps)
         total = sum(kern.values()) / 1e3 / reps
@@ -3837,6 +3913,269 @@ def run_frontend_serve(torch, np, dev, arch):
 T_START = time.perf_counter()
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the dry run's counts on the card against meta; the CLI
+# ---------------------------------------------------------------------------
+def start_dryruns():
+    """Phase 26 (c): ``python -m repro_torch.launch.dryrun`` of each
+    ``DRYRUN_CASES`` entry on the production grid, one process each, all at
+    once, on the host's CPU (the card hidden from them: a dry run counts on
+    the meta device). Started once the card work of phase 26 is done and
+    read by ``finish_dryruns``; ``stop_dryruns`` ends them."""
+    import os
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    try:
+        for name, args in DRYRUN_CASES.items():
+            log = open(DRYRUN_DIR / f"{name}.log", "w")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                   "--out", str(DRYRUN_DIR / f"{name}.json")]
+            procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                            stderr=subprocess.STDOUT), log,
+                           time.perf_counter())
+    except BaseException:
+        stop_dryruns(procs)
+        raise
+    return procs
+
+
+def stop_dryruns(procs):
+    for proc, log, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+        log.close()
+
+
+def finish_dryruns(procs, timeout_s=600):
+    """Wait for phase 26 (c)'s dry runs; print each one's row; each must
+    exit 0 with a row that fits the card."""
+    rows = {}
+    for name, (proc, log, t0) in procs.items():
+        rc = proc.wait(timeout=timeout_s)
+        log.flush()
+        text = (DRYRUN_DIR / f"{name}.log").read_text()
+        check(rc == 0, f"dryrun {' '.join(DRYRUN_CASES[name])} exited {rc}:\n{text[-3000:]}")
+        row = json.loads((DRYRUN_DIR / f"{name}.json").read_text())
+        line = [ln for ln in text.splitlines() if "(trace " in ln]
+        print(f"  {' '.join(DRYRUN_CASES[name])}: exit 0 "
+              f"({time.perf_counter() - t0:.1f} s from its start)")
+        print(f"    {line[-1] if line else ''}")
+        print(f"    flops/rank {row['flops_per_dev']:.4e}, HBM bytes {row['hbm_bytes_per_dev']:.4e}, "
+              f"collective bytes {row['coll_bytes_per_dev']:.4e}, {row['bytes_per_device'] / 2**30:.2f} "
+              f"GiB a rank, fits 80 GB {row['fits_hbm']}; kernels "
+              f"{ {k: v['launches'] for k, v in row['kernels'].items()} }; modelled from "
+              "H100_SXM's data sheet rates")
+        rows[name] = {k: row[k] for k in ("mesh", "flops_per_dev", "hbm_bytes_per_dev",
+                                          "coll_bytes_per_dev", "compute_s", "memory_s",
+                                          "collective_s", "dominant", "useful_ratio",
+                                          "bytes_per_device", "fits_hbm", "trace_s",
+                                          "kernels")}
+    return rows
+
+
+def _as_meta(torch, tree):
+    """A tree of dicts of tensors (other leaves kept) as meta tensors."""
+    if isinstance(tree, dict):
+        return {k: _as_meta(torch, v) for k, v in tree.items()}
+    return torch.empty_like(tree, device="meta") if torch.is_tensor(tree) else tree
+
+
+def _records(t):
+    return {k: (r.launches, r.flops, r.bytes) for k, r in t.mode.kernels.items()}
+
+
+def card_and_meta(torch, label, fn, args, names, launches):
+    """``fn(*args)`` counted on the card (``hlo_analysis.trace``), then on
+    meta twins of ``args``: their matmul FLOPs and the records of the
+    kernels ``names`` must be equal, and each record's launches must be
+    what ``build.LAUNCHES`` counted on the card (``launches``)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.hlo_analysis import trace
+
+    build.reset_launches()
+    card = trace(fn, *args)
+    torch.cuda.synchronize()
+    counted = dict(build.LAUNCHES)
+    meta = trace(fn, *_as_meta(torch, list(args)))
+    rc, rm = _records(card), _records(meta)
+    print(f"  {label}: matmul FLOPs card {card.mode.matmul_flops:.6e}, meta "
+          f"{meta.mode.matmul_flops:.6e}; torch's FlopCounterMode {card.torch_flop_counter:.6e}")
+    for name in names:
+        print(f"    {name}: card (launches, FLOPs, bytes) {rc.get(name)}, meta {rm.get(name)}, "
+              f"build.LAUNCHES {counted[name]}")
+        check(name in rc and rc[name] == rm.get(name),
+              f"{label}: {name}'s records differ on the card and on meta")
+        check(rc[name][0] == counted[name] == launches[name],
+              f"{label}: {name} launched {counted[name]} times, recorded "
+              f"{rc[name][0]}, expected {launches[name]}")
+    check(card.mode.matmul_flops == meta.mode.matmul_flops,
+          f"{label}: matmul FLOPs differ on the card and on meta")
+    check(card.torch_flop_counter == card.mode.matmul_flops,
+          f"{label}: FlopCounterMode counts another total")
+    card.result = meta.result = None  # the outputs: not held past the count
+    return card, meta
+
+
+def tooling_qwen(torch, np, dev, model, cast):
+    """Phase 26 (a): phase 8's Qwen1.5-0.5B weights, one (4, 2048) prefill
+    through flash counted on the card and on meta; the compute term of
+    the roofline against the measured device time; the meta estimate of
+    the peak bytes beside the card's."""
+    from repro_torch.common.hw import H100_SXM as hw
+    from repro_torch.models.steps import build_prefill_step
+
+    cfg = model.cfg
+    flash = build_prefill_step(model, use_flash=True)
+    tok = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, PREFILL_SHAPE),
+                          device=dev)
+    inputs = {"tokens": tok}
+    flash(cast, inputs)
+    torch.cuda.synchronize()
+    card, meta = card_and_meta(torch, f"{QWEN} prefill {PREFILL_SHAPE}, flash", flash,
+                               (cast, inputs), ["flash_attention"],
+                               {"flash_attention": cfg.n_layers})
+    kern = trace_by_kernel(torch, lambda: flash(cast, inputs))
+    dev_ms = sum(kern.values()) / 1e3
+    ev_ms = event_ms(torch, lambda: flash(cast, inputs), reps=5, warmup=1)
+    compute_ms = card.cost.flops / hw.peak_bf16_flops * 1e3
+    memory_ms = card.cost.hbm_bytes / hw.hbm_bandwidth * 1e3
+    roof_ms = max(compute_ms, memory_ms)
+    print(f"  roofline (modelled from H100_SXM's data sheet rates): compute "
+          f"{compute_ms:.3f} ms ({card.cost.flops:.4e} FLOPs at the bf16 peak), memory "
+          f"{memory_ms:.3f} ms ({card.cost.hbm_bytes:.4e} bytes); measured device time "
+          f"{dev_ms:.3f} ms (CUDA events {ev_ms:.3f} ms): measured/roofline "
+          f"{dev_ms / roof_ms:.3f}")
+    check(compute_ms <= dev_ms, f"the compute term {compute_ms:.3f} ms exceeds the "
+          f"measured device time {dev_ms:.3f} ms")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash(cast, inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak bytes: meta estimate {meta.bytes_per_device:.4e} (arguments "
+          f"{meta.argument_bytes:.4e}, live peak {meta.mode.peak_bytes:.4e}), card "
+          f"max_memory_allocated {peak:.4e} (ratio {meta.bytes_per_device / peak:.3f})")
+    return dict(matmul_flops=card.mode.matmul_flops, flops=card.cost.flops,
+                hbm_bytes=card.cost.hbm_bytes, flash=_records(card)["flash_attention"],
+                compute_ms=compute_ms, memory_ms=memory_ms, device_ms=dev_ms,
+                event_ms=ev_ms, measured_over_roofline=dev_ms / roof_ms,
+                meta_bytes=meta.bytes_per_device, card_peak_bytes=peak)
+
+
+def tooling_kge_body(grid, prog, arrays, db):
+    """Phase 26 (b)'s rank body: one TransE_l1 step of ``prog`` counted on
+    the card in a 1x1 NCCL world (after one step that builds the kernels)."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import build
+    from repro_torch.launch.hlo_analysis import trace
+
+    state = D.dist_state_from_arrays(prog, grid, arrays)
+    batch = D.batch_to_rank(db, grid)
+    step = D.build_dist_train_step(prog, grid)
+    step(state, batch)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    card = trace(step, state, batch, total_devices=grid.world)
+    torch.cuda.synchronize()
+    return card, dict(build.LAUNCHES)
+
+
+def tooling_kge(torch, np, kg):
+    """Phase 26 (b): one TransE_l1 FB15k step of a 1x1 NCCL world (phase
+    13's world, as the CLI sizes it) on the card, against ``count_kge`` of
+    the same program on meta in a fake world of one."""
+    import dataclasses
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.graph_part import partition
+    from repro_torch.core.rel_part import relation_partition
+    from repro_torch.core.sampling import DistSampler
+    from repro_torch.launch.dryrun import count_kge, fake_world
+    from repro_torch.launch.mesh import run_world
+
+    cfg = dataclasses.replace(fb15k_config(kg, "transe_l1"), n_parts=1)
+    book = partition(kg.train, cfg.n_entities, 1)
+    rp = relation_partition(kg.rel_counts(), 1)
+    prog = D.make_program(cfg, book.rows_per_part, rp.slots_per_part, rp.n_shared)
+    db = DistSampler(kg.train, book, rp, cfg, np.random.default_rng(0)).sample()
+    card, counted = run_world(1, 1, tooling_kge_body, (prog, D.init_dist_arrays(prog, 0), db),
+                              device="cuda")
+    with fake_world(1, 1) as grid:
+        meta = count_kge(prog, grid)
+    rc, rm = _records(card), _records(meta)
+    names = ("pairwise_l1", "l1_bwd_pair", "dedup_aggregate", "fused_update")
+    print(f"  TransE_l1 FB15k step, 1x1 NCCL world: collectives card "
+          f"{ {k: s.count for k, s in card.cost.collectives.items()} }, meta "
+          f"{ {k: s.count for k, s in meta.cost.collectives.items()} }")
+    for name in names:
+        print(f"    {name}: card (launches, FLOPs, bytes) {rc.get(name)}, meta {rm.get(name)}, "
+              f"build.LAUNCHES {counted[name]}")
+        check(name in rc and rc[name] == rm.get(name) and rc[name][0] == counted[name],
+              f"TransE_l1 step: {name}'s card and meta records or launches differ")
+    check(set(rc) == set(rm), f"kernels recorded: card {sorted(rc)}, meta {sorted(rm)}")
+    check({k: s.count for k, s in card.cost.collectives.items()}
+          == {k: s.count for k, s in meta.cost.collectives.items()},
+          "TransE_l1 step: collectives differ on the card and on meta")
+    return {k: list(v) for k, v in rc.items()}
+
+
+def tooling_mamba(torch, np, dev):
+    """Phase 26 (b): phase 4's 2-layer Mamba2-2.7B at full width, a (1, 256)
+    f32 prefill through the SSD scan, on the card and on meta."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.steps import build_prefill_step
+    from repro_torch.models.transformer import build_model
+
+    cfg = dataclasses.replace(get_arch(MAMBA), n_layers=2, dtype="float32",
+                              scan_layers=False)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1), device=dev)
+    tok = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 256)),
+                          device=dev)
+    prefill = build_prefill_step(model)
+    card, _ = card_and_meta(torch, f"{MAMBA} 2-layer prefill (1, 256)", prefill,
+                            (params, {"tokens": tok}), ["ssd_scan"], {"ssd_scan": 2})
+    return list(_records(card)["ssd_scan"])
+
+
+def seam_cost(torch, dev):
+    """The kernels' seam with no analysis active: the host time of the
+    statements it adds to a wrapper call (the device test and the check of
+    ``common/cost.ACTIVE``) against the host time of one wrapper call
+    (``pairwise_kernel`` on a tiny input, enqueued back to back)."""
+    import timeit
+
+    from repro_torch.common import cost
+    from repro_torch.kernels.kge_score.ops import pairwise_kernel
+
+    o = torch.randn(1, 8, 16, device=dev)
+    n = torch.randn(1, 8, 16, device=dev)
+    n_calls = 2000
+    for _ in range(50):
+        pairwise_kernel("dot", o, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        pairwise_kernel("dot", o, n)
+    host_us = (time.perf_counter() - t0) / n_calls * 1e6
+    torch.cuda.synchronize()
+    reps = 1_000_000
+    seam_ns = timeit.timeit("o.is_cuda\nif cost.ACTIVE is not None: pass",
+                            globals={"o": o, "cost": cost}, number=reps) / reps * 1e9
+    print(f"  the seam with no analysis: {seam_ns:.1f} ns a call (the device test and "
+          f"the check of cost.ACTIVE) against {host_us:.2f} us of host time a wrapper "
+          f"call: {seam_ns / (host_us * 1e3):.3%}")
+    return dict(seam_ns=seam_ns, wrapper_host_us=host_us)
+
+
 def _depth(arch) -> str:
     """``arch``'s depth cut (LM_CUTS), for a phase's title."""
     from repro_torch.configs import get_arch
@@ -3961,6 +4300,7 @@ def main() -> int:
     print(f"== 9. Qwen serve: python -m repro_torch.launch.serve {' '.join(SERVE_ARGS)}")
     serve_launches, serve_path = run_serve(torch, np, dev, SERVE_ARGS, "flash_attention",
                                            reuse, scaled_f32=False, files=SERVE_DIR)
+    qwen_weights = reuse[:2]  # phase 26 (a) counts a prefill of the same weights
     del reuse
     torch.cuda.empty_cache()
 
@@ -4070,17 +4410,39 @@ def main() -> int:
         print(f"  ({elapsed()} since the start)")
     free_card(torch)
     print(f"  ({elapsed()} since the start)")
-    tq_launches, tq_path = run_train_main(torch, np, dev, QWEN, 24, TRAIN_QWEN_TOKENS,
-                                          TRAIN_QWEN_TIMED)
+    tq_launches, tq_path = run_train_child(QWEN, 24, TRAIN_QWEN_TOKENS, TRAIN_QWEN_TIMED)
     free_card(torch)
     print(f"  ({elapsed()} since the start)")
-    td_launches, td_path = run_train_main(torch, np, dev, DBRX, TRAIN_DBRX_LAYERS,
-                                          TRAIN_DBRX_TOKENS, TRAIN_DBRX_TIMED)
+    td_launches, td_path = run_train_child(DBRX, TRAIN_DBRX_LAYERS, TRAIN_DBRX_TOKENS,
+                                           TRAIN_DBRX_TIMED)
     free_card(torch)
     print(f"  ({elapsed()} since the start)")
     ts_launches, ts_path = run_train_smoke(torch, dev)
     tw_rule, tw_launches = check_train_world(torch, np, dev)
     free_card(torch)
+
+    print(f"  ({elapsed()} since the start)")
+    t26 = time.perf_counter()
+    print(f"== 26. tooling: (a) {QWEN} {PREFILL_SHAPE} flash prefill counted on the card "
+          f"and on meta, its roofline; (b) a TransE_l1 FB15k step of a 1x1 NCCL world and "
+          f"the 2-layer {MAMBA} (1, 256) prefill, card against meta; the seam's host cost; "
+          f"(c) python -m repro_torch.launch.dryrun on the production grid")
+    tooling = dict(qwen=tooling_qwen(torch, np, dev, *qwen_weights))
+    del qwen_weights
+    free_card(torch)
+    tooling["kge"] = tooling_kge(torch, np, kg)
+    tooling["mamba"] = tooling_mamba(torch, np, dev)
+    tooling["seam"] = seam_cost(torch, dev)
+    free_card(torch)
+    # (c) last, alone: with the dry runs beside phase 25, torch.profiler's
+    # stop crashed the process (SIGSEGV) in the full Qwen step's trace
+    dryruns = start_dryruns()
+    try:
+        tooling["dryrun"] = finish_dryruns(dryruns)
+    finally:
+        stop_dryruns(dryruns)
+    tooling["seconds"] = time.perf_counter() - t26
+    print(f"  phase 26 took {tooling['seconds']:.1f} s")
 
     launches_of = {"transe_l2": l2_launches, "transe_l1": l1_launches,
                    "distmult": dm_launches, "qwen_prefill": pre_launches,
@@ -4132,8 +4494,9 @@ def main() -> int:
                                 "llava_serve": lv_serve_path,
                                 "train": {"agreement": train_agree, "qwen": tq_path,
                                           "dbrx": td_path, "train_lm_smoke": ts_path,
-                                          "moe_world": tw_rule}}}))
-    print(f"chip_smoke: 25 phases in {elapsed()}")
+                                          "moe_world": tw_rule},
+                                "tooling": tooling}}, default=float))
+    print(f"chip_smoke: 26 phases in {elapsed()}")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4143,4 +4506,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == TRAIN_MAIN_FLAG:
+        sys.exit(train_child_main(sys.argv[2]))
     sys.exit(main())

@@ -33,6 +33,14 @@ Gathers and all-to-alls are tiled, as every call of the reference is: the
 blocks of the group's ranks are concatenated in rank order. A group of one
 rank goes through the same calls. ``reduce_scatter`` is an all_reduce and a
 slice, which every backend (gloo included) runs.
+
+Every plain collective hands an active cost analysis (``common/cost.py``)
+its kind, its group's size and its bytes, as the reference's HLO names
+them (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``;
+``reduce_scatter`` counts as one reduce-scatter, not as its all_reduce).
+On meta tensors (the dry run, in a ``"fake"``-backend world) a collective
+returns its output's shape and moves nothing: ``torch.distributed`` is
+not called.
 """
 
 from __future__ import annotations
@@ -40,14 +48,32 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.common import cost
+
+
+def _record(kind: str, group, out: torch.Tensor, operand: torch.Tensor) -> None:
+    if cost.ACTIVE is not None:
+        ranks = dist.get_process_group_ranks(
+            dist.group.WORLD if group is None else group)
+        cost.ACTIVE.collective(kind, ranks,
+                               out.numel() * out.element_size(),
+                               operand.numel() * operand.element_size())
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    y = x.detach().contiguous().clone()
+    if not y.is_meta:
+        dist.all_reduce(y, group=group)
+    return y
+
 
 # ---------------------------------------------------------------------------
 # plain collectives (no autograd)
 # ---------------------------------------------------------------------------
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over the group, in a new tensor."""
-    y = x.detach().contiguous().clone()
-    dist.all_reduce(y, group=group)
+    y = _all_reduce(x, group)
+    _record("all-reduce", group, y, x)
     return y
 
 
@@ -61,17 +87,21 @@ def all_gather_plain(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     xs = x.detach().movedim(axis, 0).contiguous()
     parts = [torch.empty_like(xs) for _ in range(n)]
-    dist.all_gather(parts, xs, group=group)
+    if not xs.is_meta:
+        dist.all_gather(parts, xs, group=group)
     out = torch.cat(parts, 0)
+    _record("all-gather", group, out, xs)
     return out.movedim(0, axis)
 
 
 def reduce_scatter_plain(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     """This rank's block along ``axis`` of the sum over the group."""
-    xs = all_reduce_sum(x.movedim(axis, 0), group)
+    xs = _all_reduce(x.movedim(axis, 0), group)
     c = xs.shape[0] // dist.get_world_size(group)
     r = dist.get_rank(group)
-    return xs[r * c:(r + 1) * c].movedim(0, axis)
+    out = xs[r * c:(r + 1) * c]
+    _record("reduce-scatter", group, out, xs)
+    return out.movedim(0, axis)
 
 
 def all_to_all_plain(x: torch.Tensor, group, split_axis: int = 0,
@@ -86,7 +116,9 @@ def all_to_all_plain(x: torch.Tensor, group, split_axis: int = 0,
                          f"does not split over {n} ranks")
     send = xs.reshape((n, xs.shape[0] // n) + tuple(xs.shape[1:])).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    if not send.is_meta:
+        dist.all_to_all_single(recv, send, group=group)
+    _record("all-to-all", group, recv, send)
     # recv[i]: rank i's block, laid out as x with the split axis first
     y = recv.movedim(1, split_axis + 1).movedim(0, concat_axis)
     shape = list(y.shape)

@@ -8,6 +8,7 @@ paper's KGE training core. All are plain frozen dataclasses.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from dataclasses import dataclass, replace
 from typing import Tuple
@@ -337,3 +338,21 @@ class KGEConfig:
         """O(b*d + b*k*d/g) words — joint negative sampling (paper §3.3)."""
         b, d, k, g = self.batch_size, self.dim, self.neg_sample_size, self.neg_group_size
         return 4 * (3 * b * d + (b // g) * k * d)
+
+
+def pretty(cfg) -> str:
+    """A config, one field a line, as the JAX package's ``pretty`` prints it."""
+    lines = [f"{cfg.__class__.__name__}("]
+    for f in dataclasses.fields(cfg):
+        lines.append(f"  {f.name}={getattr(cfg, f.name)!r},")
+    lines.append(")")
+    return "\n".join(lines)
+
+
+def human(n: float) -> str:
+    """``n`` in three significant digits with a K/M/B/T/P/E suffix."""
+    for unit in ["", "K", "M", "B", "T", "P"]:
+        if abs(n) < 1000:
+            return f"{n:.3g}{unit}"
+        n /= 1000
+    return f"{n:.3g}E"

@@ -5,7 +5,7 @@ Every number is the dense rate or size of NVIDIA's H100 SXM data sheet, at
 the card's full 700 W power limit; a card set below it (``nvidia-smi
 --query-gpu=power.limit``) runs slower under load. ``chip_smoke.py`` reads
 its bounds (the least time the card could take for a kernel's work) from
-``H100_SXM``; a roofline over the port's programs would read the same spec.
+``H100_SXM``, and so does the dry run's roofline (``launch/roofline.py``).
 """
 
 from dataclasses import dataclass
@@ -22,6 +22,8 @@ class HwSpec:
     hbm_bytes: int  # HBM capacity per card
     smem_bytes: int  # shared memory per SM (L1 and shared, configurable)
     sm_count: int
+    network_bandwidth: float  # bytes/s per card, per direction, between nodes
+    nvlink_domain: int  # cards of one node, all to all over NVLink
 
 
 # Sources: NVIDIA H100 Tensor Core GPU data sheet, SXM column (dense rates,
@@ -29,7 +31,10 @@ class HwSpec:
 # 67, HBM3 3.35 TB/s and 80 GB, NVLink 900 GB/s (both directions). The SM
 # count and the shared memory per SM are the H100 SXM5's in NVIDIA's Hopper
 # architecture whitepaper (and compute capability 9.0's in the CUDA C++
-# programming guide).
+# programming guide). Between nodes, NVIDIA's DGX H100 data sheet gives
+# every GPU one ConnectX-7 port of 400 Gb/s (50 GB/s each way), and a node
+# 8 GPUs joined by NVLink: a collective whose group spans nodes runs at the
+# network's rate (``launch/roofline.py``).
 H100_SXM = HwSpec(
     name="nvidia-h100-sxm",
     peak_bf16_flops=989e12,
@@ -40,4 +45,6 @@ H100_SXM = HwSpec(
     hbm_bytes=80 * 1024**3,  # "80 GB", counted as the reference counts v5e's
     smem_bytes=228 * 1024,
     sm_count=132,
+    network_bandwidth=400e9 / 8,  # one 400 Gb/s ConnectX-7 a GPU
+    nvlink_domain=8,
 )

@@ -3,8 +3,12 @@
 ``pairwise_scores`` is the reduction core/scores.negative_score calls. The
 device of the tensors decides the path: on CUDA tensors it launches the
 hand-written kernels (csrc/pairwise.cu forward, csrc/l1_bwd.cu l1 backward)
-or raises; on CPU tensors it runs the plain versions (ref.py). Both devices
-go through the same ``autograd.Function``.
+or raises; on meta tensors it takes the same checks and returns the
+kernels' outputs as empty meta tensors (the card's route, described
+abstractly, for the dry run); on CPU tensors it runs the plain versions
+(ref.py). Every device goes through the same ``autograd.Function``. On
+CUDA and on meta each call hands an active cost analysis its kernel's
+work (``cost.py``, ``common/cost.py``).
 
 Backward (``_Pairwise``), as in the reference's custom VJP (JAX ops.py:64-84):
   dot  : d_o = g @ negs ; d_n = g.T @ o                 (plain matmuls)
@@ -22,20 +26,24 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.common import cost
 from repro_torch.kernels import build
+from repro_torch.kernels.kge_score.cost import l1_bwd_cost, pairwise_cost
 from repro_torch.kernels.kge_score.ref import MODES, l1_grads_ref, pairwise_ref
+
+PAIR_ROWS = 64  # rows of o a pair launch's tile takes (csrc/l1_bwd.cu kPairRows)
 
 _MODE_ID = {"dot": 0, "l2sq": 1, "l1": 2}
 
 
 def _as_groups(what: str, o: torch.Tensor, negs: torch.Tensor, *more: torch.Tensor):
-    """The checks every kge_score kernel makes: one CUDA device, float32,
-    contiguous, (B, D) x (K, D) or (G, B, D) x (G, K, D). Returns the
-    operands with a leading group dimension."""
+    """The checks every kge_score kernel makes: one CUDA (or meta) device,
+    float32, contiguous, (B, D) x (K, D) or (G, B, D) x (G, K, D). Returns
+    the operands with a leading group dimension."""
     ts = (o, negs, *more)
-    if not (o.is_cuda and all(t.device == o.device for t in ts)):
-        raise ValueError(f"{what} kernel needs its operands on one CUDA "
-                         f"device, got {[str(t.device) for t in ts]}")
+    if not ((o.is_cuda or o.is_meta) and all(t.device == o.device for t in ts)):
+        raise ValueError(f"{what} kernel needs its operands on one CUDA device "
+                         f"(or all on meta), got {[str(t.device) for t in ts]}")
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"{what} kernel takes float32, got {[t.dtype for t in ts]}")
     if o.dim() not in (2, 3) or any(t.dim() != o.dim() for t in ts):
@@ -59,10 +67,13 @@ def pairwise_kernel(mode: str, o: torch.Tensor, negs: torch.Tensor) -> torch.Ten
     K = n3.shape[1]
     out = torch.empty((G, B, K), device=o.device, dtype=torch.float32)
     if out.numel():
-        build.launch("pairwise", o3.data_ptr(), n3.data_ptr(), out.data_ptr(),
-                     G, B, K, D, _MODE_ID[mode],
-                     torch.cuda.current_stream(o.device).cuda_stream)
-        build.count(f"pairwise_{mode}")
+        if o.is_cuda:
+            build.launch("pairwise", o3.data_ptr(), n3.data_ptr(), out.data_ptr(),
+                         G, B, K, D, _MODE_ID[mode],
+                         torch.cuda.current_stream(o.device).cuda_stream)
+            build.count(f"pairwise_{mode}")
+        if cost.ACTIVE is not None:
+            cost.ACTIVE.kernel(pairwise_cost(mode, G, B, K, D))
     return out if o.dim() == 3 else out[0]
 
 
@@ -92,7 +103,8 @@ def l1_bwd_kernel(o: torch.Tensor, negs: torch.Tensor, g: torch.Tensor,
     if g3.shape != (G, B, K):
         raise ValueError(f"l1_bwd kernel: g {tuple(g.shape)} does not match "
                          f"{tuple(o.shape)} x {tuple(negs.shape)}")
-    stream = torch.cuda.current_stream(o.device).cuda_stream
+    launch = o.is_cuda
+    stream = torch.cuda.current_stream(o.device).cuda_stream if launch else None
 
     def empty(*shape):
         return torch.empty(shape, device=o.device, dtype=torch.float32)
@@ -100,11 +112,15 @@ def l1_bwd_kernel(o: torch.Tensor, negs: torch.Tensor, g: torch.Tensor,
     if need_do and need_dn:
         d_o, d_n = empty(G, B, D), empty(G, K, D)
         if d_o.numel() or d_n.numel():
-            scratch = empty(build.library("l1_bwd").l1_bwd_pair_scratch(G, B, K, D))
-            build.launch("l1_bwd", o3.data_ptr(), n3.data_ptr(), g3.data_ptr(),
-                         d_o.data_ptr(), d_n.data_ptr(), scratch.data_ptr(),
-                         G, B, K, D, stream, symbol="l1_bwd_pair_launch")
-            build.count("l1_bwd_pair", "l1_bwd_do", "l1_bwd_dn")
+            scratch = empty(build.library("l1_bwd").l1_bwd_pair_scratch(G, B, K, D)
+                            if launch else -(-B // PAIR_ROWS) * G * K * D)
+            if launch:
+                build.launch("l1_bwd", o3.data_ptr(), n3.data_ptr(), g3.data_ptr(),
+                             d_o.data_ptr(), d_n.data_ptr(), scratch.data_ptr(),
+                             G, B, K, D, stream, symbol="l1_bwd_pair_launch")
+                build.count("l1_bwd_pair", "l1_bwd_do", "l1_bwd_dn")
+            if cost.ACTIVE is not None:
+                cost.ACTIVE.kernel(l1_bwd_cost(G, B, K, D))
         out = [d_o, d_n]
     else:
         out = []
@@ -117,9 +133,13 @@ def l1_bwd_kernel(o: torch.Tensor, negs: torch.Tensor, g: torch.Tensor,
                 continue
             d = empty(G, R, D)
             if d.numel():
-                build.launch("l1_bwd", x.data_ptr(), y.data_ptr(), g3.data_ptr(),
-                             d.data_ptr(), G, R, C, D, trans, stream)
-                build.count(name)
+                if launch:
+                    build.launch("l1_bwd", x.data_ptr(), y.data_ptr(), g3.data_ptr(),
+                                 d.data_ptr(), G, R, C, D, trans, stream)
+                    build.count(name)
+                if cost.ACTIVE is not None:
+                    cost.ACTIVE.kernel(l1_bwd_cost(G, B, K, D, need_do=not trans,
+                                                   need_dn=bool(trans)))
             out.append(d)
     if o.dim() == 2:
         out = [d if d is None else d[0] for d in out]
@@ -148,7 +168,7 @@ class _Pairwise(torch.autograd.Function):
     def forward(ctx, mode, o, negs):
         ctx.mode = mode
         ctx.save_for_backward(o, negs)
-        if o.is_cuda:
+        if o.is_cuda or o.is_meta:
             return pairwise_kernel(mode, o, negs)
         return pairwise_ref(mode, o, negs)
 
@@ -166,7 +186,7 @@ class _Pairwise(torch.autograd.Function):
         # autograd may hand over an expanded (stride-0) g; the kernel reads
         # it by stride as a contiguous (G, B, K)
         g = g.contiguous()
-        grads = l1_bwd_kernel if o.is_cuda else l1_grads_ref
+        grads = l1_bwd_kernel if o.is_cuda or o.is_meta else l1_grads_ref
         return (None, *grads(o, negs, g, need_do, need_dn))
 
 

@@ -2,8 +2,11 @@
 
 The device of the tensors decides the path: on CUDA tensors each wrapper
 launches its hand-written kernel (csrc/dedup_aggregate.cu,
-csrc/fused_update.cu) or raises; on CPU tensors it runs the plain version
-(ref.py). optim/sparse_adagrad.py composes the two; nothing else should call
+csrc/fused_update.cu) or raises; on meta tensors it takes the same checks
+and returns the kernel's outputs as meta tensors (the card's route,
+described abstractly, for the dry run); on CPU tensors it runs the plain
+version (ref.py). On CUDA and on meta each call hands an active cost
+analysis its kernel's work (``cost.py``, ``common/cost.py``). optim/sparse_adagrad.py composes the two; nothing else should call
 them.
 
 Contracts:
@@ -22,7 +25,9 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.common import cost
 from repro_torch.kernels import build
+from repro_torch.kernels.sparse_adagrad.cost import dedup_cost, update_cost
 from repro_torch.kernels.sparse_adagrad.ref import (
     dedup_aggregate_ref,
     fused_update_ref,
@@ -30,9 +35,9 @@ from repro_torch.kernels.sparse_adagrad.ref import (
 
 
 def _check_rows(ids: torch.Tensor, grads: torch.Tensor, what: str) -> torch.Tensor:
-    if not (ids.is_cuda and grads.device == ids.device):
-        raise ValueError(f"{what} kernel needs ids and grads on one CUDA "
-                         f"device, got {ids.device} and {grads.device}")
+    if not ((ids.is_cuda or ids.is_meta) and grads.device == ids.device):
+        raise ValueError(f"{what} kernel needs ids and grads on one CUDA device "
+                         f"(or both on meta), got {ids.device} and {grads.device}")
     if grads.dtype != torch.float32:
         raise TypeError(f"{what} kernel takes float32 grads, got {grads.dtype}")
     if ids.dim() != 1 or grads.dim() != 2 or grads.shape[0] != ids.shape[0]:
@@ -49,17 +54,20 @@ def dedup_aggregate(
     ids: torch.Tensor, grads: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(uid (n,) int32, agg (n, D)) in the in-place dedup layout."""
-    if not ids.is_cuda:
+    if not (ids.is_cuda or ids.is_meta):
         return dedup_aggregate_ref(ids, grads)
     ids32 = _check_rows(ids, grads, "dedup_aggregate")
     n, D = grads.shape
     uid = torch.empty_like(ids32)
     agg = torch.empty_like(grads)
     if n:
-        build.launch("dedup_aggregate", ids32.data_ptr(), grads.data_ptr(),
-                     uid.data_ptr(), agg.data_ptr(), n, D,
-                     torch.cuda.current_stream(ids.device).cuda_stream)
-        build.count("dedup_aggregate")
+        if ids.is_cuda:
+            build.launch("dedup_aggregate", ids32.data_ptr(), grads.data_ptr(),
+                         uid.data_ptr(), agg.data_ptr(), n, D,
+                         torch.cuda.current_stream(ids.device).cuda_stream)
+            build.count("dedup_aggregate")
+        if cost.ACTIVE is not None:
+            cost.ACTIVE.kernel(dedup_cost(n, D))
     return uid, agg
 
 
@@ -72,12 +80,12 @@ def fused_sparse_adagrad(
     eps: float = 1e-10,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """In-place row Adagrad of ``table``/``gsq``; returns them."""
-    if not table.is_cuda:
+    if not (table.is_cuda or table.is_meta):
         return fused_update_ref(table, gsq, ids, grads, lr, eps)
     ids32 = _check_rows(ids, grads, "fused_update")
     if not (gsq.device == table.device == ids.device):
         raise ValueError("fused_update kernel needs table, gsq, ids and grads "
-                         "on one CUDA device")
+                         "on one CUDA device (or all on meta)")
     if table.dtype != torch.float32 or gsq.dtype != torch.float32:
         raise TypeError("fused_update kernel takes a float32 table and gsq")
     if (table.dim() != 2 or gsq.shape != table.shape
@@ -88,9 +96,12 @@ def fused_sparse_adagrad(
         raise ValueError("fused_update kernel updates contiguous tensors in place")
     n, D = grads.shape
     if n:
-        build.launch("fused_update", table.data_ptr(), gsq.data_ptr(),
-                     ids32.data_ptr(), grads.data_ptr(), n, D, table.shape[0],
-                     float(lr), float(eps),
-                     torch.cuda.current_stream(table.device).cuda_stream)
-        build.count("fused_update")
+        if table.is_cuda:
+            build.launch("fused_update", table.data_ptr(), gsq.data_ptr(),
+                         ids32.data_ptr(), grads.data_ptr(), n, D, table.shape[0],
+                         float(lr), float(eps),
+                         torch.cuda.current_stream(table.device).cuda_stream)
+            build.count("fused_update")
+        if cost.ACTIVE is not None:
+            cost.ACTIVE.kernel(update_cost(n, D))
     return table, gsq

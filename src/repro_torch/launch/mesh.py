@@ -70,6 +70,13 @@ class ProcessGrid:
         return self.M * self.S
 
 
+def make_production_grid(multi_pod: bool = False) -> Tuple[int, int]:
+    """The reference's production mesh as ``(M, S)``: (16, 16), or (32, 16)
+    for its (2, 16, 16) with the pod and data axes flattened into the
+    machines (the product of its ``batch_axes``, common/shard.py)."""
+    return (32, 16) if multi_pod else (16, 16)
+
+
 def make_grid(M: int, S: int, device) -> ProcessGrid:
     """Create every subgroup (on every rank, in one order) after
     ``init_process_group``; return this rank's grid."""

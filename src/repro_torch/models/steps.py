@@ -28,9 +28,16 @@ Adafactor reduces an expert slice's statistics over the model group
 (``optim/dense.py``).
 
 The training route launches no kernel of the port, as JAX's reaches no
-Pallas kernel (``Model.loss``). The dry-run's twins (``opt_state_specs``,
-``train_abstract_args``, ``abstract_inputs``, ``serve_abstract_args``)
-wait for the tooling (ROADMAP Queue A11).
+Pallas kernel (``Model.loss``).
+
+The dry run's arguments (``launch/dryrun.py``) are meta tensors of this
+rank's shapes, which the steps take as they take real ones:
+``train_abstract_args`` (the parameters, ``opt.init``'s state on them:
+JAX's ``eval_shape(opt.init)``, and the global batch, which the step
+narrows to this rank's rows), ``serve_abstract_args`` (the parameters,
+the caches and token of this machine's rows, ``index`` as an int),
+``abstract_inputs``/``abstract_inputs_tree`` (defs as meta tensors) and
+``opt_state_specs`` (the state's per-rank layout).
 
 ``build_prefill_step`` and ``build_serve_step`` run without autograd:
 serving needs no graph.
@@ -45,8 +52,37 @@ import torch
 from repro_torch.common import collectives
 from repro_torch.common.config import ArchConfig, Frontend, InputShape
 from repro_torch.models.layers import ParamDef, torch_dtype, tree_leaves, tree_map
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, machine_rows
 from repro_torch.optim.api import make_optimizer
+from repro_torch.optim.dense import stat_axis
+
+
+# ------------------------------------------------------------- optimizer specs
+def opt_state_specs(name: str, param_specs, abstract_params):
+    """The optimizer state's per-rank layout, as ``Model.param_specs``
+    gives the parameters' (JAX's ``opt_state_specs``): the step is whole;
+    AdamW's moments lie as their parameters; Adafactor's ``vr``/``vc`` are
+    sliced along ``optim.dense.stat_axis`` of their leaf's axis (whole
+    where the mean crosses it), a vector's ``v`` as the vector."""
+    if name == "adamw":
+        return {"step": None, "m": param_specs, "v": param_specs}
+    if name == "sgd":
+        return {"step": None}
+    if name == "adafactor":
+        def along(spec, stat):
+            if spec is None:
+                return None
+            ax = stat_axis(stat, spec[0])
+            return None if ax is None else (ax,) + tuple(spec[1:])
+
+        def leaf(spec, ap):
+            if ap.dim() >= 2:
+                return {"vr": along(spec, "vr"), "vc": along(spec, "vc")}
+            return {"v": along(spec, "v")}
+
+        return {"step": None, "stats": tree_map(
+            lambda ap, spec: leaf(spec, ap), abstract_params, param_specs)}
+    raise ValueError(name)
 
 
 # ----------------------------------------------------------------- input specs
@@ -107,6 +143,26 @@ def input_defs(cfg: ArchConfig, shape: InputShape, model: Model,
     else:  # decode
         out["token"] = ParamDef((gb, 1), init="zeros", dtype=torch.int32)
     return out
+
+
+def abstract_inputs(defs: Dict[str, ParamDef], grid=None) -> Dict[str, torch.Tensor]:
+    """The inputs of ``input_defs`` as meta tensors; with a grid, the rows
+    (axis 0) of this rank's machine (``transformer.machine_rows``), which
+    a prefill or decode step takes. A train step takes the global batch
+    (it narrows each microbatch itself): pass no grid."""
+    out = {}
+    for k, d in defs.items():
+        shape = tuple(d.shape)
+        if grid is not None:
+            rows = machine_rows(grid, shape[0])
+            shape = (rows.stop - rows.start,) + shape[1:]
+        out[k] = torch.empty(shape, dtype=d.dtype, device="meta")
+    return out
+
+
+def abstract_inputs_tree(defs):
+    """A tree of defs (the caches) as meta tensors of their shapes."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"), defs)
 
 
 # ------------------------------------------------------------------ train step
@@ -175,6 +231,18 @@ def build_train_step(model: Model, lr: float = 1e-4, shape: Optional[InputShape]
     return train_step, opt
 
 
+def train_abstract_args(model: Model, shape: InputShape, lr: float = 1e-4):
+    """(parameters, optimizer state, batch) as meta tensors for a dry run
+    of ``build_train_step(model, lr, shape)``: this rank's parameters, the
+    config's optimizer's state built on them (JAX's ``jax.eval_shape(
+    opt.init, aps)``) and the global batch of ``input_defs``."""
+    aps = model.abstract_params()
+    _, opt = build_train_step(model, lr, shape)
+    aos = opt.init(aps)
+    batch = abstract_inputs(input_defs(model.cfg, shape, model))
+    return aps, aos, batch
+
+
 # ------------------------------------------------------- prefill / serve steps
 def build_prefill_step(model: Model, use_flash: bool = False):
     """``prefill(params, inputs) -> logits`` of the whole prompt batch;
@@ -198,3 +266,16 @@ def build_serve_step(model: Model):
         return model.decode_step(params, caches, token, index)
 
     return serve
+
+
+def serve_abstract_args(model: Model, shape: InputShape):
+    """(parameters, caches, token, index) for a dry run of one
+    ``build_serve_step`` call: meta tensors of this rank's parameters and
+    of the caches and token of this machine's rows of the global batch
+    (``transformer.machine_rows``), a cache of ``shape.seq_len`` positions,
+    and the last position as ``index`` (a decode step reads its whole
+    cache, masked, whatever the index)."""
+    aps = model.abstract_params()
+    token = abstract_inputs(input_defs(model.cfg, shape, model), model.grid)["token"]
+    caches = abstract_inputs_tree(model.cache_defs(token.shape[0], shape.seq_len))
+    return aps, caches, token, shape.seq_len - 1

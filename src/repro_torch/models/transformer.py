@@ -221,6 +221,22 @@ class Model:
         layer's global expert tensor beside its own slices."""
         return materialize(self.defs, gen, device)
 
+    def abstract_params(self) -> Params:
+        """The parameter tree as meta tensors of this rank's shapes and
+        dtypes (JAX's ``abstract_params``; on a grid of S > 1 ranks an
+        expert leaf is this rank's slice). Nothing is drawn or allocated:
+        the dry run's input."""
+        return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype, device="meta"),
+                        self.defs)
+
+    def param_specs(self):
+        """Per parameter, this rank's layout in the port's terms (JAX's
+        ``param_specs``): ``(axis, parts, part)`` where the leaf is slice
+        ``part`` of ``parts`` of a global tensor along ``axis`` (counted from
+        the end), else None (whole on every rank)."""
+        return tree_map(lambda d: (d.axis, d.parts, d.part) if d.parts > 1 else None,
+                        self.defs)
+
     def cast(self, params: Params) -> Params:
         """Every f32 tensor of two or more dimensions in the config's dtype;
         a tensor already in it is kept, not copied."""

@@ -76,3 +76,23 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_version_sensitive_torch_symbols_only_in_compat():
+    """``torch.testing._internal`` (the fake process group) and
+    ``torch.utils.flop_counter`` are imported by ``common/compat.py`` alone."""
+    compat = PORT / "common" / "compat.py"
+    found = []
+    for path in PORT_FILES + [SMOKE]:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            if any(n.startswith(("torch.testing._internal", "torch.utils.flop_counter"))
+                   for n in names):
+                found.append(path)
+    assert found and set(found) == {compat}
