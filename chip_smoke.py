@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --update-only   # phases 1-2, then 3's update rows and (d)
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. environment: the card's name and power limit, torch, capability (9, 0);
@@ -23,11 +24,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      128, Whisper-large-v3's decoder self-attention 4 x 20 x 20 x 448 x 64
      and LLaVA-NeXT-Mistral-7B's prefill 2 x 32 x 8 x 4096 x 128; dedup
      and the update also at phase 13's shapes, the
-     5,632-slot T5 flush and the 1,280-slot relation apply), with its
+     5,632-slot T5 flush and the 1,280-slot relation apply; the update
+     also on the ids dedup leaves of one FB15k step, on RESCAL/TransR's
+     1345 x 160,000 projection rows, on its scalar path (D = 401, a
+     table one float off 16 bytes), and cold in L2 at four shapes), with its
      time, the plain version's time, one PyTorch
      library call's time as a yardstick where one computes the same
      function, and the least time the card could take for the same work
-     (bound);
+     (bound); then (d) twelve RESCAL steps on the full FB15k at lr 0.05,
+     ten traced: the step's device time by kernel and the projection
+     apply's share;
   4. agreement: three dim-400 training steps at batch 256 and k 64 on a
      small synthetic graph, on the card (kernels) and on the CPU (plain
      versions), from the same tables and batches, for TransE_l2, TransE_l1,
@@ -299,6 +305,16 @@ RAGGED_SHAPE = (2, 1000, 250, 300)
 EVAL_SHAPE = (1, 512, 14951, 400)
 L1_BWD_SHAPES = (PATH_SHAPE, RAGGED_SHAPE, (3, 65, 129, 33), (1, 256, 1024, 400),
                  (1, 777, 300, 401))
+# fused_update: RESCAL/TransR's projection rows at FB15k (n_relations x dim *
+# rel_dim); a cold reading writes UPDATE_FLUSH_BYTES before each launch
+PROJ_SHAPE = (1345, 160000)
+UPDATE_FLUSH_BYTES = 256 << 20
+UPDATE_COLD_REPS = 20
+# phase 3 (d): RESCAL steps on the full FB15k, steps 3..12 traced; the
+# entity and relation applies take under 20 us (phase 3), a projection apply
+# of the path's ~344 rows at least its ~330-us bound
+RESCAL_STEPS, RESCAL_TRACED = 12, (2, 12)
+PROJ_APPLY_MIN_US = 100.0
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 HOGWILD_DIR = ROOT / "build" / "chip_smoke_hogwild"
 HOGWILD_STEPS = 200
@@ -1232,18 +1248,97 @@ def check_dedup(torch, np, dev, gen, kg):
                                                  if k != "entity"})]
 
 
-def check_update(torch, dev, gen):
+def update_cold_ms(torch, dev, fn, reps=UPDATE_COLD_REPS):
+    """Mean device time of the fused_update kernel's own launches in ``reps``
+    calls of ``fn``, each after a write of UPDATE_FLUSH_BYTES, which leaves
+    none of its rows in the 50 MB L2; the flush's own kernel is not
+    counted."""
+    flush = torch.empty(UPDATE_FLUSH_BYTES // 4, device=dev)
+
+    def run():
+        for r in range(reps):
+            flush.fill_(float(r))
+            fn()
+
+    fn()  # built and loaded before the trace
+    ev = [v for k, v in trace_events(torch, run).items() if "fused_update" in k]
+    us, n = sum(u for u, _ in ev), sum(c for _, c in ev)
+    check(n > 0, "the cold trace holds no fused_update launch")
+    return us / n / 1e3
+
+
+def off_16_bytes(torch, t):
+    """A contiguous copy of ``t`` whose storage starts one float past a
+    16-byte boundary."""
+    return torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape).copy_(t)
+
+
+def _update_row(torch, dev, label, table, gsq, ids, g, lr, eps, cold=False):
+    """Phase 3's reading of one fused_update shape: kernel and plain version
+    on clones of ``table``/``gsq``, the error and the untouched rows gated;
+    then the kernel's, the plain version's and the library's times (warm),
+    with ``cold`` also the kernel's cold in L2. Returns (row, err, tol)."""
     from repro_torch.kernels.sparse_adagrad.cost import update_cost
     from repro_torch.kernels.sparse_adagrad.ops import fused_sparse_adagrad
     from repro_torch.kernels.sparse_adagrad.ref import fused_update_ref
+
+    (n_rows, D), n = table.shape, ids.numel()
+    kt, kq, pt, pq = table.clone(), gsq.clone(), table.clone(), gsq.clone()
+    if table.data_ptr() % 16:  # keep the base as it was: the scalar path
+        kt = off_16_bytes(torch, table)
+    fused_sparse_adagrad(kt, kq, ids, g, lr, eps)
+    fused_update_ref(pt, pq, ids, g, lr, eps)
+    torch.cuda.synchronize()
+    e = max(float((kt - pt).abs().max()), float((kq - pq).abs().max()))
+    t = TOL_REL * max(1.0, float(pt.abs().max()), float(pq.abs().max()))
+    bits = torch.equal(kt, pt) and torch.equal(kq, pq)
+    valid = (ids >= 0) & (ids < n_rows)
+    rows, gv = ids[valid].long(), g[valid]
+    v = int(rows.numel())
+    untouched = torch.ones(n_rows, dtype=torch.bool, device=dev)
+    untouched[rows] = False
+    same = torch.equal(kt[untouched], table[untouched]) and \
+        torch.equal(kq[untouched], gsq[untouched])
+    print(f"  fused_update {label} {n_rows}x{D}, n={n}: max_abs_err {e:.3e} "
+          f"(tol {t:.3e}), bit-equal to plain {bits}, untouched rows "
+          f"bit-identical {same}")
+    check(same and math.isfinite(e) and e <= t,
+          f"fused_update {label} n={n} disagrees: {e} > {t} or untouched rows moved")
+
+    def library():
+        q = gsq.index_select(0, rows) + gv * gv
+        gsq.index_copy_(0, rows, q)
+        table.index_add_(0, rows, -(lr * gv / (q.sqrt() + eps)))
+
+    def kernel():
+        fused_sparse_adagrad(kt, kq, ids, g, lr, eps)
+
+    tm = timings(torch, kernel, lambda: fused_update_ref(pt, pq, ids, g, lr, eps),
+                 library)
+    # ids; grad, table, gsq rows in; two rows out: this run's valid rows
+    b_ms, b_by = bound_of(update_cost(n, D, valid=v))
+    row = dict(shape=f"{n_rows}x{D}, n={n}", valid=v, bit_equal=bits,
+               bound_ms=b_ms, bound_by=b_by, **tm)
+    if cold:
+        row["cold_ms"] = update_cold_ms(torch, dev, kernel)
+    cold_txt = f", cold {row['cold_ms'] * 1e3:.2f} us" if cold else ""
+    print(f"    {_fmt(row)}, {v} valid rows{cold_txt}")
+    return row, e, t
+
+
+def check_update(torch, np, dev, gen, kg):
+    from repro_torch.kernels.sparse_adagrad.ref import dedup_aggregate_ref
 
     lr, eps, err, tol, timed = 0.25, 1e-10, 0.0, 0.0, {}
     # the single path's entity and relation applies, then phase 13's flush
     # of 5,632 pend slots into its 14,952-row block and its 1,280-slot
     # relation apply, then phase 14's apply of its 3,584 local slots and
-    # its coalesced push's flush of 4,096
-    for n, n_rows in ((2560, 14951), (1024, 1345), (5632, 14952), (1280, 1352),
-                      (3584, 14952), (4096, 14952)):
+    # its coalesced push's flush of 4,096: random ids, 15% pads
+    for name, n, n_rows in (("entity", 2560, 14951), ("relation", 1024, 1345),
+                            ("dist_entity_flush", 5632, 14952),
+                            ("dist_relation", 1280, 1352),
+                            ("pipe_entity_local", 3584, 14952),
+                            ("pipe_flush", 4096, 14952)):
         D = 400
         table = torch.randn(n_rows, D, generator=gen).to(dev)
         gsq = torch.rand(n_rows, D, generator=gen).to(dev)
@@ -1251,48 +1346,92 @@ def check_update(torch, dev, gen):
         ids[torch.rand(n, generator=gen) < 0.15] = -1  # duplicates after dedup
         ids = ids.to(dev)
         g = torch.randn(n, D, generator=gen).to(dev)
-        kt, kq, pt, pq = table.clone(), gsq.clone(), table.clone(), gsq.clone()
-        fused_sparse_adagrad(kt, kq, ids, g, lr, eps)
-        fused_update_ref(pt, pq, ids, g, lr, eps)
-        torch.cuda.synchronize()
-        e = max(float((kt - pt).abs().max()), float((kq - pq).abs().max()))
-        t = TOL_REL * max(1.0, float(pt.abs().max()), float(pq.abs().max()))
-        untouched = torch.ones(n_rows, dtype=torch.bool, device=dev)
-        untouched[ids[ids >= 0].long()] = False
-        same = torch.equal(kt[untouched], table[untouched]) and \
-            torch.equal(kq[untouched], gsq[untouched])
-        print(f"  fused_update {n_rows}x{D}, n={n}: max_abs_err {e:.3e} "
-              f"(tol {t:.3e}), untouched rows bit-identical {same}")
-        check(same and math.isfinite(e) and e <= t,
-              f"fused_update n={n} disagrees: {e} > {t} or untouched rows moved")
+        timed[name], e, t = _update_row(torch, dev, name, table, gsq, ids, g, lr, eps,
+                                        cold=name == "dist_entity_flush")
         err, tol = max(err, e), max(tol, t)
-        valid = ids >= 0
-        rows, gv = ids[valid].long(), g[valid]
-        v = int(rows.numel())
+    # the main path's own layouts: the uid dedup_aggregate leaves of one
+    # FB15k step's entity and relation ids; the relation layout also on
+    # RESCAL/TransR's projection rows (dim x rel_dim = 160,000 floats);
+    # the scalar path at an odd D and at a table one float off 16 bytes.
+    # Drawn on the card from a generator of their own.
+    own = torch.Generator(device=dev).manual_seed(7)
+    ent, rel = path_batch_ids(torch, np, dev, kg)
 
-        def library():
-            q = gsq.index_select(0, rows) + gv * gv
-            gsq.index_copy_(0, rows, q)
-            table.index_add_(0, rows, -(lr * gv / (q.sqrt() + eps)))
+    def uid(ids):
+        return dedup_aggregate_ref(ids, torch.zeros(ids.numel(), 1, device=dev))[0]
 
-        tm = timings(torch, lambda: fused_sparse_adagrad(kt, kq, ids, g, lr, eps),
-                     lambda: fused_update_ref(pt, pq, ids, g, lr, eps), library)
-        # ids; grad, table, gsq rows in; two rows out: this run's valid rows
-        b_ms, b_by = bound_of(update_cost(n, D, valid=v))
-        timed[n] = dict(bound_ms=b_ms, bound_by=b_by, **tm)
-        print(f"    {_fmt(timed[n])}, {v} valid rows")
+    for name, ids, (n_rows, D), cold in (
+            ("entity_path", uid(ent), (14951, 400), True),
+            ("relation_path", uid(rel), (1345, 400), True),
+            ("projection_path", uid(rel), PROJ_SHAPE, True),
+            ("scalar_odd_d", uid(rel), (1345, 401), False),
+            ("scalar_off_16_bytes", uid(ent), (14951, 400), False)):
+        table = torch.randn(n_rows, D, generator=own, device=dev)
+        gsq = torch.rand(n_rows, D, generator=own, device=dev)
+        g = torch.randn(ids.numel(), D, generator=own, device=dev)
+        if name == "scalar_off_16_bytes":
+            table = off_16_bytes(torch, table)
+        timed[name], e, t = _update_row(torch, dev, name, table, gsq, ids, g, lr, eps,
+                                        cold=cold)
+        err, tol = max(err, e), max(tol, t)
+        del table, gsq, g
+        free_card(torch)
+    head = timed.pop("entity")
+    head.pop("shape")
     return [dict(name="fused_update", source="src/repro_torch/csrc/fused_update.cu",
                  replaces=TPU_KERNEL["fused_update"], max_abs_err=err, tol=tol,
-                 shape="14951x400, n=2560", **timed[2560],
-                 other_shapes={"relation": {"shape": "1345x400, n=1024", **timed[1024]},
-                               "dist_entity_flush": {"shape": "14952x400, n=5632",
-                                                     **timed[5632]},
-                               "dist_relation": {"shape": "1352x400, n=1280",
-                                                 **timed[1280]},
-                               "pipe_entity_local": {"shape": "14952x400, n=3584",
-                                                     **timed[3584]},
-                               "pipe_flush": {"shape": "14952x400, n=4096",
-                                              **timed[4096]}})]
+                 shape="14951x400, n=2560", **head, other_shapes=timed)]
+
+
+def run_rescal_steps(torch):
+    """Phase 3 (d): ``python -m repro_torch.launch.train --dataset fb15k
+    --model rescal --lr 0.05`` (phase 4's lr: RESCAL diverges at FB15k's
+    0.25) for RESCAL_STEPS steps, steps RESCAL_TRACED[0]+1..[1] traced once:
+    the step's device time by kernel and the share of the projection apply,
+    the fused_update launches on 160,000-wide rows (every other apply of
+    the step takes under PROJ_APPLY_MIN_US). Returns a summary."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+
+    a, b = RESCAL_TRACED
+    traced = step_window(torch, a, b, profile=True)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    cfg, state = train.main(["--dataset", "fb15k", "--model", "rescal", "--lr", "0.05",
+                             "--steps", str(RESCAL_STEPS), "--log-every", "6"],
+                            hooks=[traced])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    check(tuple(state.r_proj.shape) == (cfg.n_relations, cfg.dim * cfg.rel_dim)
+          and bool(torch.isfinite(state.r_proj).all()), "rescal: r_proj not finite")
+    check(launches["fused_update"] >= 3 * RESCAL_STEPS,
+          f"rescal: fused_update launched {launches['fused_update']} times in "
+          f"{RESCAL_STEPS} steps, not one each of the entity, relation and "
+          "projection applies a step")
+    n = b - a
+    kern = [e for e in traced.prof.key_averages() if _self_device_us(e) > 0]
+    total = sum(_self_device_us(e) for e in kern) / n
+    upd = [_self_device_us(e) for e in traced.prof.events()
+           if "fused_update" in e.name and _self_device_us(e) > 0]
+    proj = [us for us in upd if us >= PROJ_APPLY_MIN_US]
+    check(proj, "rescal: no projection apply in the trace")
+    proj_us = sum(proj) / n
+    print(f"  rescal: {cfg.n_entities} x {cfg.dim} entities, r_proj {cfg.n_relations} x "
+          f"{cfg.dim * cfg.rel_dim}, batch {cfg.batch_size}, k {cfg.neg_sample_size}, "
+          f"lr {cfg.lr}, overlap {cfg.overlap_update}; {RESCAL_STEPS} steps in "
+          f"{wall:.1f} s incl. graph generation; step {traced.ms:.4f} ms traced")
+    print(f"  device time {total:.2f} us a step (steps {a + 1}..{b}); the projection "
+          f"apply {proj_us:.2f} us a step ({len(proj)} launches, "
+          f"{min(proj):.2f}-{max(proj):.2f} us each), {proj_us / total:.1%} of it; "
+          f"every fused_update launch {sum(upd) / n:.2f} us a step")
+    print("  device time a step by kernel:")
+    for e in sorted(kern, key=_self_device_us, reverse=True)[:12]:
+        print(f"    {_self_device_us(e) / n:9.2f} us  x{e.count / n:4.1f}  {e.key[:90]}")
+    return dict(device_us_per_step=total, proj_apply_us_per_step=proj_us,
+                proj_apply_share=proj_us / total, proj_apply_us=proj,
+                update_us_per_step=sum(upd) / n, traced_step_ms=traced.ms,
+                launches=launches)
 
 
 def _attn_mask(torch, dev, T, S, window, q_offset):
@@ -1642,6 +1781,36 @@ class _Tee:
         self.out.flush()
 
 
+def step_window(torch, a, b, profile=False):
+    """A hook of ``train.main``: the device-synchronised wall time of steps
+    ``a+1..b`` (``.ms`` a step); with ``profile``, also their torch.profiler
+    trace (``.prof``)."""
+    from repro_torch.launch import engine
+
+    class Window(engine.Hook):
+        def __init__(self):
+            self.a, self.b = a, b
+            self.ms = self.prof = None
+
+        def on_step(self, i, state, metrics, stats):
+            if i == self.a:
+                torch.cuda.synchronize()
+                if profile:
+                    from torch.profiler import ProfilerActivity, profile as prof
+
+                    self.prof = prof(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+                    self.prof.start()
+                self.t0 = time.perf_counter()
+            elif i == self.b:
+                torch.cuda.synchronize()
+                self.ms = (time.perf_counter() - self.t0) / (self.b - self.a) * 1e3
+                if self.prof is not None:
+                    self.prof.stop()
+
+    return Window()
+
+
 def run_path(torch, np, model, extra, timed_from, hooks=()):
     """``python -m repro_torch.launch.train --dataset fb15k --model <model>``
     for MAIN_PATH_STEPS steps with launch counts set to 0 just before; the
@@ -1653,35 +1822,10 @@ def run_path(torch, np, model, extra, timed_from, hooks=()):
     from repro_torch.launch import engine, train
 
     steps = MAIN_PATH_STEPS
-
-    class Window(engine.Hook):
-        """Device-synchronised wall time of steps ``a+1..b``; with
-        ``profile``, also the device time of their kernels (torch.profiler)."""
-
-        def __init__(self, a, b, profile=False):
-            self.a, self.b, self.profile = a, b, profile
-            self.ms = self.prof = None
-
-        def on_step(self, i, state, metrics, stats):
-            if i == self.a:
-                torch.cuda.synchronize()
-                if self.profile:
-                    from torch.profiler import ProfilerActivity, profile
-
-                    self.prof = profile(activities=[ProfilerActivity.CPU,
-                                                    ProfilerActivity.CUDA])
-                    self.prof.start()
-                self.t0 = time.perf_counter()
-            elif i == self.b:
-                torch.cuda.synchronize()
-                self.ms = (time.perf_counter() - self.t0) / (self.b - self.a) * 1e3
-                if self.prof is not None:
-                    self.prof.stop()
-
     metrics = engine.MetricsHook(("loss", "pos_score", "neg_score", "pend_dropped",
                                   "push_dropped"))
-    timing = Window(timed_from, steps - 50)  # steady state, untraced
-    traced = Window(steps - 40, steps - 20, profile=True)
+    timing = step_window(torch, timed_from, steps - 50)  # steady state, untraced
+    traced = step_window(torch, steps - 40, steps - 20, profile=True)
     tee = _Tee(sys.stdout)
     build.reset_launches()
     t0 = time.perf_counter()
@@ -4191,6 +4335,47 @@ def elapsed() -> str:
     return f"{time.perf_counter() - T_START:.0f} s"
 
 
+def print_rows(rows):
+    for r in rows:
+        print(f"  {r['name']:16s} {r['shape']:>18s}: {_fmt(r)}  err "
+              f"{r['max_abs_err']:.2e} <= {r['tol']:.2e}")
+        for name, o in r.get("other_shapes", {}).items():
+            cold = f"  cold_ms {o['cold_ms']:.5f}" if "cold_ms" in o else ""
+            print(f"  {'':16s} {name:>18s}: {_fmt(o)}{cold}")
+
+
+UPDATE_ONLY_FLAG = "--update-only"
+
+
+def update_only_main() -> int:
+    """``python3 chip_smoke.py --update-only``: phases 1 and 2, then phase
+    3's fused_update readings and its RESCAL steps (d) alone, for comparing
+    the kernel of two trees on one card (parent, change, change, parent;
+    the script imports the ``src/`` beside it). Prints the readings as one
+    JSON line last."""
+    import torch
+
+    check(torch.cuda.is_available(), "--update-only needs a CUDA device")
+    sys.path.insert(0, str(ROOT / "src"))
+    load_rates()
+    import numpy as np
+
+    from repro_torch.data.kg_synth import fb15k_like
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(f"  {nvidia_smi_line()}; torch {torch.__version__} (CUDA {torch.version.cuda})")
+    build.build(verbose=True)
+    rows = check_update(torch, np, dev, torch.Generator().manual_seed(3),
+                        fb15k_like(scale=1.0, seed=0))
+    print_rows(rows)
+    rescal = run_rescal_steps(torch)
+    print(json.dumps({"fused_update": rows[0], "rescal_steps": rescal}, default=float))
+    return 0
+
+
 def free_card(torch):
     import gc
 
@@ -4245,13 +4430,11 @@ def main() -> int:
         return torch.Generator().manual_seed(seed)
 
     rows = check_pairwise(torch, dev, gen(0)) + check_l1_bwd(torch, dev, gen(1)) \
-        + check_dedup(torch, np, dev, gen(2), kg) + check_update(torch, dev, gen(3)) \
+        + check_dedup(torch, np, dev, gen(2), kg) + check_update(torch, np, dev, gen(3), kg) \
         + check_flash(torch, dev, gen(4)) + check_ssd(torch, dev, gen(5))
-    for r in rows:
-        print(f"  {r['name']:16s} {r['shape']:>18s}: {_fmt(r)}  err "
-              f"{r['max_abs_err']:.2e} <= {r['tol']:.2e}")
-        for name, o in r.get("other_shapes", {}).items():
-            print(f"  {'':16s} {name:>18s}: {_fmt(o)}")
+    print_rows(rows)
+    print("  (d) RESCAL steps on the full FB15k, traced")
+    rescal_steps = run_rescal_steps(torch)
 
     print(f"  ({elapsed()} since the start)")
     print("== 4. card vs CPU: three dim-400 steps at batch 256, k 64; 2-layer "
@@ -4495,7 +4678,8 @@ def main() -> int:
                                 "train": {"agreement": train_agree, "qwen": tq_path,
                                           "dbrx": td_path, "train_lm_smoke": ts_path,
                                           "moe_world": tw_rule},
-                                "tooling": tooling}}, default=float))
+                                "tooling": tooling,
+                                "rescal_steps": rescal_steps}}, default=float))
     print(f"chip_smoke: 26 phases in {elapsed()}")
     print(nvidia_smi_line())
     print(json.dumps({"kernels": kernels}))
@@ -4508,4 +4692,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == TRAIN_MAIN_FLAG:
         sys.exit(train_child_main(sys.argv[2]))
+    if sys.argv[1:] == [UPDATE_ONLY_FLAG]:
+        sys.exit(update_only_main())
     sys.exit(main())

@@ -486,6 +486,53 @@ def test_fused_update_kernel_matches_plain(cuda):
     assert torch.equal(kt[untouched], table[untouched])
 
 
+# (case, n_rows, D, n): the vector path at D = 400 and at RESCAL/TransR's
+# 160,000-wide projection rows (79 column tiles a row); the scalar path at
+# an odd D (401; 3, under one float4) and at a table one float past a
+# 16-byte boundary; all pads; ids past the table beside valid ones
+UPDATE_CASES = [
+    ("d400", 2000, 400, 512),
+    ("d401", 2000, 401, 512),
+    ("d3", 2000, 3, 512),
+    ("d160000", 64, 160000, 48),
+    ("off_16_bytes", 2000, 400, 512),
+    ("all_pads", 2000, 400, 512),
+    ("past_the_table", 2000, 400, 512),
+]
+
+
+@pytest.mark.parametrize("case,n_rows,D,n", UPDATE_CASES)
+def test_fused_update_kernel_paths_bit_equal(cuda, case, n_rows, D, n):
+    """Every path of the kernel gives the plain version's bits (the same
+    ``_rn`` operations in the same order) and leaves other rows alone."""
+    rng = _rng(10)
+    table = torch.tensor(rng.standard_normal((n_rows, D)), dtype=torch.float32,
+                         device=cuda)
+    gsq = torch.tensor(np.abs(rng.standard_normal((n_rows, D))), dtype=torch.float32,
+                       device=cuda)
+    ids = np.where(rng.random(n) < 0.2, -1, rng.permutation(n_rows)[:n])
+    if case == "all_pads":
+        ids[:] = -1
+    if case == "past_the_table":  # dropped, like JAX's mode="drop" scatter
+        ids[rng.random(n) < 0.3] = n_rows + rng.integers(0, 1000)
+    ids = torch.tensor(ids, dtype=torch.int32, device=cuda)
+    g = torch.tensor(rng.standard_normal((n, D)), dtype=torch.float32, device=cuda)
+    kt, kq, pt, pq = table.clone(), gsq.clone(), table.clone(), gsq.clone()
+    if case == "off_16_bytes":
+        kt = torch.empty(n_rows * D + 1, device=cuda)[1:].view(n_rows, D).copy_(table)
+        assert kt.data_ptr() % 16 and kt.is_contiguous()
+    fused_sparse_adagrad(kt, kq, ids, g, 0.25)
+    fused_update_ref(pt, pq, ids, g, 0.25)
+    torch.cuda.synchronize()
+    assert torch.equal(kt, pt) and torch.equal(kq, pq)
+    untouched = torch.ones(n_rows, dtype=torch.bool, device=cuda)
+    untouched[ids[(ids >= 0) & (ids < n_rows)].long()] = False
+    assert torch.equal(kt[untouched], table[untouched])
+    assert torch.equal(kq[untouched], gsq[untouched])
+    if case == "all_pads":
+        assert torch.equal(kt, table) and torch.equal(kq, gsq)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     o = torch.zeros(4, 8, device=cuda)
     with pytest.raises(TypeError):

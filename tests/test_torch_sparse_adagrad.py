@@ -91,11 +91,16 @@ def test_fused_update_matches_ref_and_leaves_untouched_rows(ids_np):
 
 
 @needs_prefetch
-@pytest.mark.parametrize("D", [32, 256])
+@pytest.mark.parametrize("D", [32, 256, 401, 4096])
 def test_fused_update_matches_jax_pallas_interpret(D):
+    """JAX tiles a row into column blocks of 512/256/128 where one divides D
+    (4096: eight of 512) and takes the whole row otherwise (401, the port's
+    scalar path); pads at both ends and in the middle."""
     rng = np.random.default_rng(2)
     table, gsq = _table(rng, 64, D)
     ids = _unique(rng, 20, 64)
+    ids[[0, -1]] = -1
+    assert (ids[1:-1] < 0).any() and (ids >= 0).any()
     g = rng.standard_normal((20, D)).astype(np.float32)
     tt, tq = torch.tensor(table), torch.tensor(gsq)
     ops.fused_sparse_adagrad(tt, tq, torch.tensor(ids), torch.tensor(g), 0.05)
