@@ -1,0 +1,9 @@
+"""The device time of every operation in the traced steps, a step."""
+
+from kgebench.trace import total_us
+
+
+def read(rec):
+    if rec.trace is None or not rec.trace.device:
+        return None
+    return total_us(rec.trace.device) / rec.trace.steps / 1e3
