@@ -22,7 +22,15 @@ either package writes passes either package's validators:
 
 PyTorch launches CUDA work asynchronously: a span around device work times
 its enqueue unless the block ends in a synchronize. Timing is
-``time.perf_counter`` throughout (monotonic).
+``time.perf_counter`` throughout (monotonic). A span may carry ``args``
+(``span("engine/step", step=i)``), written into its event.
+
+One clock with the device trace: each registry reads ``perf_counter_ns``
+and ``time_ns`` back to back when it starts (``clock``), and span ``ts`` 0
+is that ``perf_counter_ns`` reading. torch.profiler (Kineto) stamps host
+calls and device ops in Unix-epoch ns, ``time_ns``'s scale, so
+``profiler_ns`` puts a span's ``ts`` on the profiler's timebase;
+``trace_json`` writes the pair under ``otherData.clock``.
 
 Metric-name stability: every name is listed in ``KNOWN_METRICS`` (exact) or
 ``KNOWN_PREFIXES`` (families), the JAX package's table (docs/TELEMETRY.md).
@@ -145,11 +153,12 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_reg", "_name", "_t0")
+    __slots__ = ("_reg", "_name", "_args", "_t0")
 
-    def __init__(self, reg: "MetricsRegistry", name: str):
+    def __init__(self, reg: "MetricsRegistry", name: str, args: dict):
         self._reg = reg
         self._name = name
+        self._args = args
 
     def __enter__(self):
         self._t0 = time.perf_counter()
@@ -158,12 +167,15 @@ class _Span:
     def __exit__(self, *exc):
         t1 = time.perf_counter()
         reg = self._reg
-        reg._emit_event({
+        ev = {
             "name": self._name, "ph": "X", "pid": _PID,
             "tid": threading.get_ident(),
             "ts": (self._t0 - reg._t0) * 1e6,
             "dur": (t1 - self._t0) * 1e6,
-        })
+        }
+        if self._args:
+            ev["args"] = self._args
+        reg._emit_event(ev)
         return False
 
 
@@ -182,7 +194,12 @@ class MetricsRegistry:
         self.trace_on = trace
         self.max_events = max_events
         self._lock = threading.Lock()
-        self._t0 = time.perf_counter()
+        # the clock anchor: span ts 0 is this perf_counter reading
+        p0 = time.perf_counter_ns()
+        wall = time.time_ns()
+        p1 = time.perf_counter_ns()
+        self.clock = {"perf_counter_ns": (p0 + p1) // 2, "time_ns": wall}
+        self._t0 = self.clock["perf_counter_ns"] / 1e9
         self.counters: Dict[str, float] = {}
         self.gauges: Dict[str, float] = {}
         self._hists: Dict[str, list] = {}  # name -> [count, total, min, max]
@@ -231,19 +248,10 @@ class MetricsRegistry:
         return out
 
     # ---- tracing ----------------------------------------------------------
-    def span(self, name: str):
+    def span(self, name: str, **args):
         if not (self.enabled and self.trace_on):
             return _NULL_SPAN
-        return _Span(self, name)
-
-    def instant(self, name: str) -> None:
-        if not (self.enabled and self.trace_on):
-            return
-        self._emit_event({
-            "name": name, "ph": "i", "s": "t", "pid": _PID,
-            "tid": threading.get_ident(),
-            "ts": (time.perf_counter() - self._t0) * 1e6,
-        })
+        return _Span(self, name, args)
 
     def set_track_name(self, label: str, tid: Optional[int] = None) -> None:
         if not (self.enabled and self.trace_on):
@@ -291,7 +299,8 @@ class MetricsRegistry:
                 for tid, label in sorted(self._tracks.items())
             ]
             events = list(self._events)
-        return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+        return {"traceEvents": meta + events, "displayTimeUnit": "ms",
+                "otherData": {"clock": dict(self.clock)}}
 
     def write_trace(self, path: str) -> None:
         with open(path, "w") as f:
@@ -355,12 +364,15 @@ def trace_inc(name: str, n: float) -> None:
     _REGISTRY.trace_inc(name, n)
 
 
-def span(name: str):
-    return _REGISTRY.span(name)
+def span(name: str, **args):
+    return _REGISTRY.span(name, **args)
 
 
-def instant(name: str) -> None:
-    _REGISTRY.instant(name)
+def profiler_ns(ts_us: float, clock: dict) -> int:
+    """A span's ``ts`` (us from its registry's start) in Unix-epoch ns, the
+    timebase torch.profiler stamps its events with; ``clock`` is the
+    registry's ``clock`` (a trace file's ``otherData.clock``)."""
+    return clock["time_ns"] + round(ts_us * 1e3)
 
 
 def set_track_name(label: str) -> None:

@@ -19,6 +19,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common import telemetry
 from repro_torch.common.config import KGEConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.core.sampling import MODES
@@ -279,14 +280,17 @@ def batch_to_device(batch, device) -> Dict[str, torch.Tensor]:
 
     For a CUDA device the host arrays are pinned and copied asynchronously,
     so a prefetch thread can stage the next batch while the card computes.
+    The copies are one ``pipeline/copy`` span; on a prefetch thread it
+    lies inside the ``pipeline/sample`` span that carries the batch's number.
     """
     dev = torch.device(device)
     out = {}
-    for name in ("h", "r", "t", "neg"):
-        x = torch.from_numpy(np.ascontiguousarray(getattr(batch, name), np.int64))
-        if dev.type == "cuda":
-            x = x.pin_memory()
-        out[name] = x.to(dev, non_blocking=True)
+    with telemetry.span("pipeline/copy"):
+        for name in ("h", "r", "t", "neg"):
+            x = torch.from_numpy(np.ascontiguousarray(getattr(batch, name), np.int64))
+            if dev.type == "cuda":
+                x = x.pin_memory()
+            out[name] = x.to(dev, non_blocking=True)
     return out
 
 

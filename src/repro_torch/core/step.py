@@ -22,7 +22,11 @@ The step follows the paper's update discipline (§2, §3.4, T5):
      whether to apply now or defer.
 
 ``store_grads`` is phases 2–3 and ``store_apply_grads`` phase 4;
-``store_train_step`` composes them on one (flushed) store set.
+``store_train_step`` composes them on one (flushed) store set. The phases
+are telemetry spans: ``step/flush``, ``step/grad`` holding ``step/gather``,
+``step/score`` (up to the loss) and ``step/backward``, then
+``step/apply``. The step is eager, so a span times its phase's enqueue;
+the device time of a phase is that of the launches made inside its span.
 ``store_pipelined_step`` is the depth-1 pipelined step of the distributed
 path (``--pipeline-depth 1``): grads against the workspaces the previous
 step prefetched, then the pull for the next batch, then the apply.
@@ -90,16 +94,17 @@ def store_grads(
 
     # ---- 2. gather the workspaces (or take the previous step's prefetch):
     # copies, leaves of this step's graph
-    if prefetched is None:
-        ws = stores["entity"].gather(batch["ent_ids"])
-        rel_ws = stores["rel"].gather(batch["rel_ids"])
-    else:
-        ws, rel_ws = prefetched["entity"].detach(), prefetched["rel"].detach()
-    ws, rel_ws = ws.requires_grad_(), rel_ws.requires_grad_()
-    proj_ws = (stores["proj"].gather(batch["rel_ids"]).requires_grad_()
-               if has_proj else None)
-    shared_rows = (stores["shared"].gather(rel_shared).requires_grad_()
-                   if has_shared else None)
+    with telemetry.span("step/gather"):
+        if prefetched is None:
+            ws = stores["entity"].gather(batch["ent_ids"])
+            rel_ws = stores["rel"].gather(batch["rel_ids"])
+        else:
+            ws, rel_ws = prefetched["entity"].detach(), prefetched["rel"].detach()
+        ws, rel_ws = ws.requires_grad_(), rel_ws.requires_grad_()
+        proj_ws = (stores["proj"].gather(batch["rel_ids"]).requires_grad_()
+                   if has_proj else None)
+        shared_rows = (stores["shared"].gather(rel_shared).requires_grad_()
+                       if has_shared else None)
 
     b = h_slot.shape[0]
     k = cfg.neg_sample_size
@@ -113,72 +118,74 @@ def store_grads(
                     and k % n_servers == 0)
 
     # ---- 3. loss + grads w.r.t. workspace rows ONLY (sparse, paper §2)
-    h, t = ws[h_slot], ws[t_slot]
-    r = rel_ws[rel_slot]
-    if has_shared:
-        r = torch.where((rel_shared >= 0).unsqueeze(1), shared_rows, r)
-    pr = None if proj_ws is None else proj_ws[rel_slot]
-    pos = S.positive_score(model, h, r, t, cfg.gamma, ctx, r_proj=pr,
-                           rel_dim=cfg.rel_dim, emb_scale=scale)
+    with telemetry.span("step/score"):
+        h, t = ws[h_slot], ws[t_slot]
+        r = rel_ws[rel_slot]
+        if has_shared:
+            r = torch.where((rel_shared >= 0).unsqueeze(1), shared_rows, r)
+        pr = None if proj_ws is None else proj_ws[rel_slot]
+        pos = S.positive_score(model, h, r, t, cfg.gamma, ctx, r_proj=pr,
+                               rel_dim=cfg.rel_dim, emb_scale=scale)
 
-    neg_out = []
-    if neg_mode == "naive":
-        # independent negatives per triplet — the paper's O(b·k·d) strawman
-        mode = S.PAIRWISE_OF[model]
-        for m in range(MODES):
-            corrupt = "tail" if m == 0 else "head"
-            e = h if m == 0 else t
-            o = S.neg_o(model, e, r, corrupt, ctx, emb_scale=scale)
-            negs = ws[neg_slot[m]]  # (b, k, d)
-            if mode == "dot":
-                part = torch.einsum("bd,bkd->bk", o, negs)
-            elif mode == "l2sq":
-                part = torch.sum(torch.square(o[:, None, :] - negs), dim=-1)
-            else:
-                part = torch.sum(torch.abs(o[:, None, :] - negs), dim=-1)
-            neg_out.append(S.finish_neg_scores(model, part, cfg.gamma, ctx))
-    elif neg_mode == "joint":
-        # joint negatives (T1): one pool of k entities per group of gsz
-        # triplets; the groups are a leading dimension of one call
-        gsz = b // ng
-        rg = r.reshape(ng, gsz, -1)
-        prg = None if pr is None else pr.reshape(ng, gsz, -1)
-        for m in range(MODES):
-            corrupt = "tail" if m == 0 else "head"
-            e = (h if m == 0 else t).reshape(ng, gsz, -1)
-            negs = ws[neg_slot[m]]  # (ng, k, d)
-            if sharded_negs:
-                neg_out.append(S.negative_score_sharded(
-                    model, e, rg, negs, corrupt, cfg.gamma, ctx, emb_scale=scale,
-                    wire_dtype=cfg.comm_dtype))  # (ng, gsz, k/S) local
-            else:
-                neg_out.append(S.negative_score(
-                    model, e, rg, negs, corrupt, cfg.gamma, ctx, r_proj=prg,
-                    rel_dim=cfg.rel_dim, emb_scale=scale))
-    else:
-        raise ValueError(f"neg_mode {neg_mode!r}")
-    neg = torch.stack(neg_out)  # (MODES, ng, gsz, k or k/S) | (MODES, b, k)
-    if sharded_negs:
-        # scalar-reduced loss: the same value on every server
-        n_all = MODES * b * k
-        if cfg.loss == "logistic":
-            neg_sum = ctx.psum(torch.sum(F.softplus(neg)))
-            loss = torch.mean(F.softplus(-torch.cat([pos, pos]))) + neg_sum / n_all
-        else:  # ranking: pair each positive with its group's negatives
-            p2 = torch.stack([pos, pos]).reshape(MODES, ng, b // ng, 1)
-            hinge = torch.clamp_min(cfg.gamma - p2 + neg, 0.0)
-            loss = ctx.psum(torch.sum(hinge)) / n_all
-        neg_mean = all_reduce_sum(torch.sum(neg.detach()), ctx.axis) / n_all
-    else:
-        loss = L.kge_loss(cfg.loss, torch.cat([pos, pos]),
-                          neg.reshape(MODES * b, -1), margin=cfg.gamma)
-        neg_mean = neg.detach().mean()
+        neg_out = []
+        if neg_mode == "naive":
+            # independent negatives per triplet — the paper's O(b·k·d) strawman
+            mode = S.PAIRWISE_OF[model]
+            for m in range(MODES):
+                corrupt = "tail" if m == 0 else "head"
+                e = h if m == 0 else t
+                o = S.neg_o(model, e, r, corrupt, ctx, emb_scale=scale)
+                negs = ws[neg_slot[m]]  # (b, k, d)
+                if mode == "dot":
+                    part = torch.einsum("bd,bkd->bk", o, negs)
+                elif mode == "l2sq":
+                    part = torch.sum(torch.square(o[:, None, :] - negs), dim=-1)
+                else:
+                    part = torch.sum(torch.abs(o[:, None, :] - negs), dim=-1)
+                neg_out.append(S.finish_neg_scores(model, part, cfg.gamma, ctx))
+        elif neg_mode == "joint":
+            # joint negatives (T1): one pool of k entities per group of gsz
+            # triplets; the groups are a leading dimension of one call
+            gsz = b // ng
+            rg = r.reshape(ng, gsz, -1)
+            prg = None if pr is None else pr.reshape(ng, gsz, -1)
+            for m in range(MODES):
+                corrupt = "tail" if m == 0 else "head"
+                e = (h if m == 0 else t).reshape(ng, gsz, -1)
+                negs = ws[neg_slot[m]]  # (ng, k, d)
+                if sharded_negs:
+                    neg_out.append(S.negative_score_sharded(
+                        model, e, rg, negs, corrupt, cfg.gamma, ctx, emb_scale=scale,
+                        wire_dtype=cfg.comm_dtype))  # (ng, gsz, k/S) local
+                else:
+                    neg_out.append(S.negative_score(
+                        model, e, rg, negs, corrupt, cfg.gamma, ctx, r_proj=prg,
+                        rel_dim=cfg.rel_dim, emb_scale=scale))
+        else:
+            raise ValueError(f"neg_mode {neg_mode!r}")
+        neg = torch.stack(neg_out)  # (MODES, ng, gsz, k or k/S) | (MODES, b, k)
+        if sharded_negs:
+            # scalar-reduced loss: the same value on every server
+            n_all = MODES * b * k
+            if cfg.loss == "logistic":
+                neg_sum = ctx.psum(torch.sum(F.softplus(neg)))
+                loss = torch.mean(F.softplus(-torch.cat([pos, pos]))) + neg_sum / n_all
+            else:  # ranking: pair each positive with its group's negatives
+                p2 = torch.stack([pos, pos]).reshape(MODES, ng, b // ng, 1)
+                hinge = torch.clamp_min(cfg.gamma - p2 + neg, 0.0)
+                loss = ctx.psum(torch.sum(hinge)) / n_all
+            neg_mean = all_reduce_sum(torch.sum(neg.detach()), ctx.axis) / n_all
+        else:
+            loss = L.kge_loss(cfg.loss, torch.cat([pos, pos]),
+                              neg.reshape(MODES * b, -1), margin=cfg.gamma)
+            neg_mean = neg.detach().mean()
 
     leaves = ([ws, rel_ws] + ([shared_rows] if has_shared else [])
               + ([proj_ws] if has_proj else []))
     # a leaf the score never reads (RESCAL's rel_ws: it reads only the
     # projection rows) gets a zero gradient, as JAX's value_and_grad gives
-    grads = list(torch.autograd.grad(loss, leaves, materialize_grads=True))
+    with telemetry.span("step/backward"):
+        grads = list(torch.autograd.grad(loss, leaves, materialize_grads=True))
     out = {"entity": grads.pop(0), "rel": grads.pop(0)}
     if has_shared:
         out["shared"] = grads.pop(0)

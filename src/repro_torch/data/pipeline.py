@@ -14,7 +14,12 @@ producer waiting, not wasted sampling work. ``stats()`` exposes the three
 backpressure signals (queue depth, cumulative producer wait, cumulative
 consumer wait), mirrored into the telemetry registry (``pipeline/*``) when
 it is enabled; each ``sample_fn`` call is a ``pipeline/sample`` span on its
-worker's own trace track.
+worker's own trace track, and each ``get`` that finds the queue empty a
+``pipeline/wait`` span on the consumer's. Both carry the batch's sequence
+number (``args.batch``) where it is known when the span opens: always for
+the wait; for a sample, in the ordered mode and with one worker, where
+batch t is worker ``t mod N``'s; the free mode's several workers race
+for the queue, so their sample spans carry ``args.worker`` instead.
 
 Divergence from the reference: a ``sample_fn`` exception is not lost. The
 worker hands it to the consumers and exits; the ``get()`` that reaches it,
@@ -106,19 +111,23 @@ class WorkerPool:
         self.threads: List[threading.Thread] = []
         for wid in range(n_workers):
             q = self.queues[wid % len(self.queues)]
-            th = threading.Thread(target=self._run, args=(factory(wid), q),
+            th = threading.Thread(target=self._run, args=(wid, factory(wid), q),
                                   daemon=True, name=f"sampler-{wid}")
             self.threads.append(th)
         for th in self.threads:
             th.start()
 
     # ---- producer side -----------------------------------------------------
-    def _run(self, sample_fn: Callable[[], object], q: queue.Queue):
+    def _run(self, wid: int, sample_fn: Callable[[], object], q: queue.Queue):
+        n = len(self.threads)
+        # the span's args: batch k of this worker is batch wid + k n where
+        # the queue order is fixed (module docstring)
+        args = {"batch": wid} if self.ordered or n == 1 else {"worker": wid}
         held = _NOTHING
         while not self._stop.is_set():
             if held is _NOTHING:
                 try:
-                    with telemetry.span("pipeline/sample"):
+                    with telemetry.span("pipeline/sample", **args):
                         held = sample_fn()
                 except Exception as exc:  # reported by get(), not lost here
                     held = _Failure(exc)
@@ -138,6 +147,8 @@ class WorkerPool:
             if isinstance(held, _Failure):
                 return
             held = _NOTHING
+            if "batch" in args:
+                args["batch"] += n
             with self._stat_lock:
                 self._produced += 1
             telemetry.inc("pipeline/produced")
@@ -173,7 +184,8 @@ class WorkerPool:
             except queue.Empty:
                 t0 = time.perf_counter()
                 try:
-                    item = q.get(timeout=timeout)
+                    with telemetry.span("pipeline/wait", batch=self._taken):
+                        item = q.get(timeout=timeout)
                 finally:
                     self._add_wait("_consumer_wait", t0)
             if isinstance(item, _Failure):

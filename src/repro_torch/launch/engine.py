@@ -389,13 +389,13 @@ def train_loop(step_fn, state, make_batch, n_steps: int, *, start: int = 0,
             for i in range(start + 1, n_steps + 1):
                 batch, stats = src.get()
                 nxt, _ = src.peek()
-                with telemetry.span("engine/step"):
+                with telemetry.span("engine/step", step=i):
                     state, metrics = step_fn(state, batch, nxt)
                 for h in hooks:
                     h.on_step(i, state, metrics, stats)
         else:
             for i, (batch, stats) in zip(range(start + 1, n_steps + 1), src):
-                with telemetry.span("engine/step"):
+                with telemetry.span("engine/step", step=i):
                     state, metrics = step_fn(state, batch)
                 for h in hooks:
                     h.on_step(i, state, metrics, stats)
@@ -414,7 +414,7 @@ def run_loop(step_fn, state, n_steps: int, *, start: int = 0,
     i = start .. n_steps - 1; hooks see the 1-based step number."""
     i = start
     for i in range(start + 1, n_steps + 1):
-        with telemetry.span("engine/step"):
+        with telemetry.span("engine/step", step=i):
             state, metrics = step_fn(i - 1, state)
         for h in hooks:
             h.on_step(i, state, metrics, None)
