@@ -27,13 +27,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      5,632-slot T5 flush and the 1,280-slot relation apply; the update
      also on the ids dedup leaves of one FB15k step, on RESCAL/TransR's
      1345 x 160,000 projection rows, on its scalar path (D = 401, a
-     table one float off 16 bytes), and cold in L2 at four shapes), with its
+     table one float off 16 bytes), and cold in L2 at four shapes; RESCAL's
+     projection products and their gradients (rescal_proj, forward and
+     backward) at the benchmark's 1024 x 500 x 500 and a ragged shape,
+     warm and cold, beside the chain of PyTorch calls they replace), with its
      time, the plain version's time, one PyTorch
      library call's time as a yardstick where one computes the same
      function, and the least time the card could take for the same work
      (bound); then (d) twelve RESCAL steps on the full FB15k at lr 0.05,
      ten traced: the step's device time by kernel and the projection
-     apply's share;
+     apply's share, one rescal_proj launch each way a step;
   4. agreement: three dim-400 training steps at batch 256 and k 64 on a
      small synthetic graph, on the card (kernels) and on the CPU (plain
      versions), from the same tables and batches, for TransE_l2, TransE_l1,
@@ -314,6 +317,9 @@ UPDATE_COLD_REPS = 20
 # entity and relation applies take under 20 us (phase 3), a projection apply
 # of the path's ~344 rows at least its ~330-us bound
 RESCAL_STEPS, RESCAL_TRACED = 12, (2, 12)
+# rescal_proj: kgebench's RESCAL cell (b, dim, rel_dim), then float4 rows
+# with d % 4 != 0
+RESCAL_PROJ_SHAPES = ((1024, 500, 500), (64, 203, 300))
 PROJ_APPLY_MIN_US = 100.0
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 HOGWILD_DIR = ROOT / "build" / "chip_smoke_hogwild"
@@ -418,6 +424,7 @@ TPU_KERNEL = {
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:90",
     # ssd_scan_pallas (:67), its pallas_call at :85
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:67",
+    "rescal_proj": "none (the JAX package's RESCAL einsums, src/repro/core/scores.py)",
 }
 
 
@@ -1248,11 +1255,11 @@ def check_dedup(torch, np, dev, gen, kg):
                                                  if k != "entity"})]
 
 
-def update_cold_ms(torch, dev, fn, reps=UPDATE_COLD_REPS):
-    """Mean device time of the fused_update kernel's own launches in ``reps``
-    calls of ``fn``, each after a write of UPDATE_FLUSH_BYTES, which leaves
-    none of its rows in the 50 MB L2; the flush's own kernel is not
-    counted."""
+def update_cold_ms(torch, dev, fn, reps=UPDATE_COLD_REPS, kernel="fused_update"):
+    """Mean device time of the launches of ``kernel`` (a name's part) in
+    ``reps`` calls of ``fn``, each after a write of UPDATE_FLUSH_BYTES,
+    which leaves none of its operands in the 50 MB L2; the flush's own
+    kernel is not counted."""
     flush = torch.empty(UPDATE_FLUSH_BYTES // 4, device=dev)
 
     def run():
@@ -1261,9 +1268,9 @@ def update_cold_ms(torch, dev, fn, reps=UPDATE_COLD_REPS):
             fn()
 
     fn()  # built and loaded before the trace
-    ev = [v for k, v in trace_events(torch, run).items() if "fused_update" in k]
+    ev = [v for k, v in trace_events(torch, run).items() if kernel in k]
     us, n = sum(u for u, _ in ev), sum(c for _, c in ev)
-    check(n > 0, "the cold trace holds no fused_update launch")
+    check(n > 0, f"the cold trace holds no {kernel} launch")
     return us / n / 1e3
 
 
@@ -1383,6 +1390,75 @@ def check_update(torch, np, dev, gen, kg):
                  shape="14951x400, n=2560", **head, other_shapes=timed)]
 
 
+def check_rescal_proj(torch, dev):
+    """Both rescal_proj launches against their plain versions at RESCAL's
+    FB15k cell (kgebench: b 1024, dim = rel_dim 500) and a ragged shape:
+    sums within TOL_REL, dm bit for bit; times warm and cold in L2, the
+    plain einsums', and ``chain_ms``: the chain of PyTorch and cuBLAS calls
+    the step ran in their place (a second per-triplet copy of the rows,
+    h M twice and M t; backward, autograd through them)."""
+    from repro_torch.kernels.rescal_proj.cost import rescal_proj_cost
+    from repro_torch.kernels.rescal_proj.ops import (
+        rescal_proj_grads_kernel, rescal_proj_kernel)
+    from repro_torch.kernels.rescal_proj.ref import (
+        rescal_proj_grads_ref, rescal_proj_ref)
+
+    own = torch.Generator(device=dev).manual_seed(11)
+    rows = {}
+    for b, d, r in RESCAL_PROJ_SHAPES:
+        m, h, t, dph, dpt = (torch.randn(*shape, generator=own, device=dev)
+                             for shape in ((b, d * r), (b, d), (b, r), (b, r), (b, d)))
+        fwd = lambda: rescal_proj_kernel(m, h, t)  # noqa: E731
+        bwd = lambda: rescal_proj_grads_kernel(m, h, t, dph, dpt)  # noqa: E731
+        got = fwd() + bwd()
+        want = rescal_proj_ref(m, h, t) + rescal_proj_grads_ref(m, h, t, dph, dpt)
+        errs = [_max_err(torch, g, w) for g, w in zip(got, want)]
+        bits = torch.equal(got[4], want[4])
+        same = all(torch.equal(g, a) for g, a in zip(got, fwd() + bwd()))
+        label = f"{b}x{d}x{r}"
+        print(f"  rescal_proj {label}: max_abs_err ph/pt/dh/dt "
+              f"{', '.join(f'{e:.3e} (tol {tl:.3e})' for e, tl in errs[:4])}; dm "
+              f"bit-equal to plain {bits}; two calls the same bits {same}")
+        check(all(e <= tl for e, tl in errs) and bits and same,
+              f"rescal_proj {label} disagrees with its plain version")
+
+        mc = m.detach().requires_grad_(True)
+        hc, tc = h.detach().requires_grad_(True), t.detach().requires_grad_(True)
+        slot = torch.arange(b, device=dev)
+
+        def chain():
+            mm = mc[slot].view(b, d, r)
+            return (torch.einsum("bd,bdr->br", hc, mm),
+                    torch.einsum("bd,bdr->br", hc, mm),
+                    torch.einsum("bdr,br->bd", mm, tc))
+
+        outs = chain()
+        chain_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            outs, (mc, hc, tc), (dph, dph, dpt), retain_graph=True)
+        for name, kernel, plain, chained, backward in (
+                ("rescal_proj_fwd", fwd, lambda: rescal_proj_ref(m, h, t), chain, False),
+                ("rescal_proj_bwd", bwd,
+                 lambda: rescal_proj_grads_ref(m, h, t, dph, dpt), chain_bwd, True)):
+            tm = timings(torch, kernel, plain, None)
+            b_ms, b_by = bound_of(rescal_proj_cost(b, d, r, backward=backward))
+            row = dict(shape=label, bound_ms=b_ms, bound_by=b_by, **tm,
+                       cold_ms=update_cold_ms(torch, dev, kernel, kernel="rescal_proj"),
+                       chain_ms=device_ms(torch, chained, 10, 2))
+            print(f"    {name}: {_fmt(row)}; cold {row['cold_ms'] * 1e3:.2f} us; "
+                  f"the chain it replaces {row['chain_ms'] * 1e3:.2f} us")
+            rows.setdefault(name, []).append(
+                dict(row, max_abs_err=max(e for e, _ in errs),
+                     tol=max(tl for _, tl in errs)))
+        del m, h, t, dph, dpt, mc, hc, tc, got, want, outs
+        free_card(torch)
+    out = []
+    for name, (head, *others) in rows.items():
+        out.append(dict(head, name=name, source="src/repro_torch/csrc/rescal_proj.cu",
+                        replaces=TPU_KERNEL["rescal_proj"],
+                        other_shapes={o["shape"]: o for o in others}))
+    return out
+
+
 def run_rescal_steps(torch):
     """Phase 3 (d): ``python -m repro_torch.launch.train --dataset fb15k
     --model rescal --lr 0.05`` (phase 4's lr: RESCAL diverges at FB15k's
@@ -1409,6 +1485,10 @@ def run_rescal_steps(torch):
           f"rescal: fused_update launched {launches['fused_update']} times in "
           f"{RESCAL_STEPS} steps, not one each of the entity, relation and "
           "projection applies a step")
+    check(launches["rescal_proj_fwd"] == launches["rescal_proj_bwd"] == RESCAL_STEPS,
+          f"rescal: rescal_proj launched {launches['rescal_proj_fwd']} forward and "
+          f"{launches['rescal_proj_bwd']} backward in {RESCAL_STEPS} steps, not "
+          "one each a step")
     n = b - a
     kern = [e for e in traced.prof.key_averages() if _self_device_us(e) > 0]
     total = sum(_self_device_us(e) for e in kern) / n
@@ -4431,7 +4511,8 @@ def main() -> int:
 
     rows = check_pairwise(torch, dev, gen(0)) + check_l1_bwd(torch, dev, gen(1)) \
         + check_dedup(torch, np, dev, gen(2), kg) + check_update(torch, np, dev, gen(3), kg) \
-        + check_flash(torch, dev, gen(4)) + check_ssd(torch, dev, gen(5))
+        + check_flash(torch, dev, gen(4)) + check_ssd(torch, dev, gen(5)) \
+        + check_rescal_proj(torch, dev)
     print_rows(rows)
     print("  (d) RESCAL steps on the full FB15k, traced")
     rescal_steps = run_rescal_steps(torch)

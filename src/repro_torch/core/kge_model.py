@@ -191,8 +191,11 @@ def state_from_stores(state: KGEState, stores: Dict[str, DenseStore]) -> KGEStat
     )
 
 
-def dense_step_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Lower a global-id batch (h, r, t, neg) to the step's workspace form."""
+def dense_step_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    """Lower a global-id batch (h, r, t, neg) to the step's workspace form.
+
+    Its relation workspace holds one row a triplet, in triplet order, which
+    the batch states as ``rel_slot_is_arange`` (core/step.py)."""
     h, r, t, neg = batch["h"], batch["r"], batch["t"], batch["neg"]
     b = h.shape[0]
 
@@ -206,6 +209,7 @@ def dense_step_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         "t_slot": b + arange(b),
         "neg_slot": 2 * b + arange(neg.numel()).reshape(neg.shape),
         "rel_slot": arange(b),
+        "rel_slot_is_arange": True,
     }
 
 

@@ -115,7 +115,12 @@ def positive_score(
     r_proj: Optional[torch.Tensor] = None,  # (..., d * rel_dim) TransR/RESCAL
     rel_dim: int = 0,
     emb_scale: float = 1.0,
+    ph: Optional[torch.Tensor] = None,  # (..., rel_dim) RESCAL's M_r^T h, if made
 ) -> torch.Tensor:
+    """``ph``: RESCAL's replicated M_r^T h where the caller has it
+    (``kernels/rescal_proj``); ``r_proj`` is then not read."""
+    if model == "rescal" and ph is not None:
+        return ctx.psum(torch.sum(_slice_replicated(ph, ctx) * t, dim=-1))
     if model == "transe_l1":
         d = ctx.psum(torch.sum(torch.abs(h + r - t), dim=-1))
         return gamma - d
@@ -291,14 +296,18 @@ def negative_score(
     r_proj: Optional[torch.Tensor] = None,
     rel_dim: int = 0,
     emb_scale: float = 1.0,
+    o: Optional[torch.Tensor] = None,  # (..., b, d) neg_o's vector, if made
 ) -> torch.Tensor:
     """(..., b, k) negative scores via the joint decomposition.
 
     The pairwise reduction goes through kernels/kge_score/ops.py: the CUDA
     kernel for tensors on the card, the plain version for CPU tensors.
+    ``o``: the per-triplet vector where the caller has it (RESCAL's M_r^T h
+    or M_r t from ``kernels/rescal_proj``); ``neg_o`` is then not called.
     """
     mode = PAIRWISE_OF[model]
-    o = neg_o(model, h_or_t, r, corrupt, ctx, r_proj, rel_dim, emb_scale)
+    if o is None:
+        o = neg_o(model, h_or_t, r, corrupt, ctx, r_proj, rel_dim, emb_scale)
     if model == "transr":
         # negatives must be projected per relation: (..., b, k, rel_dim)
         m = _proj(r_proj, negs.shape[-1], rel_dim)

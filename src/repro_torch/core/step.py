@@ -39,6 +39,18 @@ Batch normal form (what both samplers lower to):
     neg_slot  (MODES, ng, k) joint  |  (MODES, b, k) naive — workspace slots
     rel_slot  (b,)  relation-workspace slots
     rel_shared (b,) optional: row in the shared relation table, -1 = owned
+    rel_slot_is_arange  optional, True: rel_slot is arange(b), triplet i
+              reads relation-workspace row i (the single-machine lowering,
+              ``kge_model.dense_step_batch``)
+
+RESCAL on one device (no model group) over a batch that states
+``rel_slot_is_arange`` computes both products of each triplet's matrix,
+M_r^T h and M_r t, in one op over the projection workspace itself
+(``kernels/rescal_proj``: a kernel pair on the card, einsums on the CPU);
+every other step indexes the workspace by ``rel_slot`` and scores through
+``core/scores.py``'s einsums. The telemetry counters
+``scores/rescal_proj_fused`` and ``scores/rescal_proj_einsum`` count
+RESCAL's steps by route.
 
 The reference ``jax.vmap``s the joint negative score over the ``ng``
 negative groups; here the group is a leading dimension of one batched call.
@@ -58,6 +70,7 @@ from repro_torch.core import losses as L
 from repro_torch.core import scores as S
 from repro_torch.core.sampling import MODES
 from repro_torch.embeddings.table import emb_init_scale
+from repro_torch.kernels.rescal_proj.ops import rescal_proj
 
 Stores = Dict[str, object]  # "entity", "rel", optional "proj", "shared"
 
@@ -116,6 +129,14 @@ def store_grads(
                     and model not in ("transr", "rescal")
                     and cfg.loss in ("logistic", "ranking")
                     and k % n_servers == 0)
+    # RESCAL's products straight off the projection workspace: one op, no
+    # per-triplet copy (the distributed lowering's slots repeat and its rows
+    # are dim-striped, so it indexes and takes the einsums)
+    fused_proj = (model == "rescal" and ctx.axis is None
+                  and batch.get("rel_slot_is_arange", False))
+    if model == "rescal":
+        telemetry.inc("scores/rescal_proj_fused" if fused_proj
+                      else "scores/rescal_proj_einsum")
 
     # ---- 3. loss + grads w.r.t. workspace rows ONLY (sparse, paper §2)
     with telemetry.span("step/score"):
@@ -123,9 +144,16 @@ def store_grads(
         r = rel_ws[rel_slot]
         if has_shared:
             r = torch.where((rel_shared >= 0).unsqueeze(1), shared_rows, r)
-        pr = None if proj_ws is None else proj_ws[rel_slot]
+        pr = ph = pt = None
+        if fused_proj:
+            # triplet i reads row i; rows past b (none in the lowering) read
+            # by nobody get zero gradients through the slice
+            rows = proj_ws if proj_ws.shape[0] == b else proj_ws[:b]
+            ph, pt = rescal_proj(rows, h, t)  # M_r^T h, M_r t
+        elif has_proj:
+            pr = proj_ws[rel_slot]
         pos = S.positive_score(model, h, r, t, cfg.gamma, ctx, r_proj=pr,
-                               rel_dim=cfg.rel_dim, emb_scale=scale)
+                               rel_dim=cfg.rel_dim, emb_scale=scale, ph=ph)
 
         neg_out = []
         if neg_mode == "naive":
@@ -158,9 +186,11 @@ def store_grads(
                         model, e, rg, negs, corrupt, cfg.gamma, ctx, emb_scale=scale,
                         wire_dtype=cfg.comm_dtype))  # (ng, gsz, k/S) local
                 else:
+                    o = None if ph is None else (ph if m == 0 else pt).reshape(
+                        ng, gsz, -1)
                     neg_out.append(S.negative_score(
                         model, e, rg, negs, corrupt, cfg.gamma, ctx, r_proj=prg,
-                        rel_dim=cfg.rel_dim, emb_scale=scale))
+                        rel_dim=cfg.rel_dim, emb_scale=scale, o=o))
         else:
             raise ValueError(f"neg_mode {neg_mode!r}")
         neg = torch.stack(neg_out)  # (MODES, ng, gsz, k or k/S) | (MODES, b, k)

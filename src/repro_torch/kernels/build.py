@@ -41,6 +41,7 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, *[_I] * 9, _F, _I, _P]),
     "ssd_scan": ("ssd_scan_launch", [*[_P] * 7, *[_I] * 5, _P]),
+    "rescal_proj": ("rescal_proj_launch", [*[_P] * 8, *[_I] * 3, _P]),
 }
 # a source's other C functions: symbol -> (argtypes, restype)
 FUNCTIONS = {
@@ -57,11 +58,12 @@ FUNCTIONS = {
 
 # launches per kernel; the pairwise kernel counts per mode; the l1 backward
 # per product computed (d_o, d_n), and l1_bwd_pair the calls that computed
-# both in one pass (two launches each: the pass, then d_n's partial sums)
+# both in one pass (two launches each: the pass, then d_n's partial sums);
+# rescal_proj per direction
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     ("pairwise_dot", "pairwise_l2sq", "pairwise_l1", "dedup_aggregate",
      "fused_update", "l1_bwd_do", "l1_bwd_dn", "l1_bwd_pair", "flash_attention",
-     "ssd_scan"), 0)
+     "ssd_scan", "rescal_proj_fwd", "rescal_proj_bwd"), 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

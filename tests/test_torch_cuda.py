@@ -7,6 +7,7 @@ only, so it runs on the card's machine without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import json
 import re
 
@@ -22,6 +23,8 @@ from repro_torch.kernels.kge_score.ops import (
     pairwise_scores,
 )
 from repro_torch.kernels.kge_score.ref import l1_grads_ref, pairwise_ref
+from repro_torch.kernels.rescal_proj.ops import rescal_proj_grads_kernel, rescal_proj_kernel
+from repro_torch.kernels.rescal_proj.ref import rescal_proj_grads_ref, rescal_proj_ref
 from repro_torch.kernels.sparse_adagrad.ops import dedup_aggregate, fused_sparse_adagrad
 from repro_torch.kernels.sparse_adagrad.ref import dedup_aggregate_ref, fused_update_ref
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -531,6 +534,86 @@ def test_fused_update_kernel_paths_bit_equal(cuda, case, n_rows, D, n):
     assert torch.equal(kq[untouched], gsq[untouched])
     if case == "all_pads":
         assert torch.equal(kt, table) and torch.equal(kq, gsq)
+
+
+# (b, d, rel_dim): RESCAL's FB15k cell; float4 rows with d % 4 != 0; one
+# float a lane (rel_dim % 4 != 0) with more column tiles than warps; float4
+# rows of more tiles than warps; fewer rows than a cluster has blocks
+RESCAL_PROJ_CASES = [(1024, 500, 500), (64, 203, 300), (33, 130, 257),
+                     (3, 7, 1100), (4, 5, 12)]
+
+
+@pytest.mark.parametrize("shape", RESCAL_PROJ_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_rescal_proj_kernels_match_plain(cuda, shape):
+    """Both launches against the plain einsums: the sums of d or rel_dim
+    terms within 2e-5 of the largest value, dm bit for bit (the same _rn
+    products and sum), two calls the same bits, one launch each."""
+    b, d, r = shape
+    rng = _rng(11)
+
+    def draw(*s):
+        return torch.tensor(rng.standard_normal(s), dtype=torch.float32, device=cuda)
+
+    m, h, t, dph, dpt = draw(b, d * r), draw(b, d), draw(b, r), draw(b, r), draw(b, d)
+    before = dict(build.LAUNCHES)
+    got = rescal_proj_kernel(m, h, t) + rescal_proj_grads_kernel(m, h, t, dph, dpt)
+    again = rescal_proj_kernel(m, h, t) + rescal_proj_grads_kernel(m, h, t, dph, dpt)
+    want = rescal_proj_ref(m, h, t) + rescal_proj_grads_ref(m, h, t, dph, dpt)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rescal_proj_fwd"] == before["rescal_proj_fwd"] + 2
+    assert build.LAUNCHES["rescal_proj_bwd"] == before["rescal_proj_bwd"] + 2
+    for name, g, a, w in zip(("ph", "pt", "dh", "dt", "dm"), got, again, want):
+        assert torch.equal(g, a), name
+        tol = 2e-5 * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= tol, name
+    assert torch.equal(got[4], want[4])
+
+
+def test_rescal_proj_refuses_what_the_kernels_do_not_take(cuda):
+    m, h, t = torch.zeros(4, 30, device=cuda), torch.zeros(4, 5, device=cuda), \
+        torch.zeros(4, 6, device=cuda)
+    with pytest.raises(ValueError, match="takes m"):
+        rescal_proj_kernel(m, h, torch.zeros(4, 7, device=cuda))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rescal_proj_kernel(m, h, t.cpu())
+    with pytest.raises(TypeError):
+        rescal_proj_kernel(m.double(), h.double(), t.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rescal_proj_grads_kernel(m, h, t, torch.zeros(6, 4, device=cuda).t(), h)
+
+
+def test_rescal_train_step_on_card_matches_cpu(cuda):
+    """Three RESCAL train steps on the card and on the CPU from the same
+    tables and batches: one forward and one backward launch a step, the
+    losses within 1e-5 and the tables under the Adagrad-flip rule."""
+    from repro_torch.core import kge_model as K
+    from repro_torch.core.sampling import JointSampler
+
+    cfg, kg = _hogwild_setup("rescal")
+    # chip_smoke.py phase 4's lr: at higher ones two CPU runs that differ only
+    # in the rounding of the dedup sums already part past the rule
+    cfg = dataclasses.replace(cfg, lr=0.05)
+    sampler = JointSampler(kg.train, cfg.n_entities, cfg, np.random.default_rng(0))
+    batches = [sampler.sample() for _ in range(3)]
+    card = K.init_state(cfg, torch.Generator().manual_seed(0), overlap=True, device=cuda)
+    cpu = K.init_state(cfg, torch.Generator().manual_seed(0), overlap=True, device="cpu")
+    build.reset_launches()
+    lc, lp = [], []
+    for batch in batches:
+        card, mc = K.train_step(cfg, card, K.batch_to_device(batch, cuda))
+        cpu, mp = K.train_step(cfg, cpu, K.batch_to_device(batch, "cpu"))
+        lc.append(float(mc["loss"]))
+        lp.append(float(mp["loss"]))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rescal_proj_fwd"] == build.LAUNCHES["rescal_proj_bwd"] == 3
+    np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=1e-5)
+    K.flush_state(cfg, card)
+    K.flush_state(cfg, cpu)
+    for name in ("entity", "ent_gsq", "r_proj", "proj_gsq"):
+        got, want = getattr(card, name).cpu().numpy(), getattr(cpu, name).numpy()
+        diff = np.abs(got - want)
+        assert (diff > 1e-5 + 1e-5 * np.abs(want)).mean() <= 1e-3, name
+        assert diff.max() <= 2 * cfg.lr * len(batches), name
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

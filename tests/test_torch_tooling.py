@@ -32,6 +32,8 @@ from repro_torch.configs import ARCHS, FB15K
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.kge_score import ops as kge_ops
 from repro_torch.kernels.kge_score.cost import l1_bwd_cost, pairwise_cost
+from repro_torch.kernels.rescal_proj import ops as rp_ops
+from repro_torch.kernels.rescal_proj.cost import rescal_proj_cost
 from repro_torch.kernels.sparse_adagrad import ops as sa_ops
 from repro_torch.kernels.sparse_adagrad.cost import dedup_cost, update_cost
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -271,6 +273,8 @@ def _no_plain(monkeypatch):
     monkeypatch.setattr(kge_ops, "l1_grads_ref", boom)
     monkeypatch.setattr(sa_ops, "dedup_aggregate_ref", boom)
     monkeypatch.setattr(sa_ops, "fused_update_ref", boom)
+    monkeypatch.setattr(rp_ops, "rescal_proj_ref", boom)
+    monkeypatch.setattr(rp_ops, "rescal_proj_grads_ref", boom)
 
 
 def _calls():
@@ -284,6 +288,13 @@ def _calls():
         s = kge_ops.pairwise_scores("l1", o, n)
         s.sum().backward()
         return s
+
+    def rescal():
+        m, h, t = (_meta(*shape).requires_grad_(True)
+                   for shape in ((B, D * 24), (B, D), (B, 24)))
+        ph, pt = rp_ops.rescal_proj(m, h, t)
+        (ph.sum() + pt.sum()).backward()
+        return ph, pt, m.grad, h.grad, t.grad
 
     return [
         (lambda: kge_ops.pairwise_scores("l2sq", o.detach(), n.detach()), [(G, B, K)],
@@ -306,6 +317,8 @@ def _calls():
         (lambda: ssd_ops.ssd_scan(_meta(2, 100, 4, 32), _meta(2, 100, 4), _meta(4),
                                   _meta(2, 100, 16), _meta(2, 100, 16)),
          [(2, 100, 4, 32)], [ssd_cost(2, 100, 4, 32, 16)]),
+        (rescal, [(B, 24), (B, D), (B, D * 24), (B, D), (B, 24)],
+         [rescal_proj_cost(B, D, 24), rescal_proj_cost(B, D, 24, backward=True)]),
     ]
 
 
@@ -314,7 +327,7 @@ def _shapes(out):
     return [tuple(t.shape) for t in outs]
 
 
-@pytest.mark.parametrize("i", range(7))
+@pytest.mark.parametrize("i", range(8))
 def test_wrappers_on_meta_give_kernel_shapes_and_record_cost(i, monkeypatch):
     _no_plain(monkeypatch)
     fn, shapes, costs = _calls()[i]
