@@ -296,14 +296,16 @@ class RateHook:
 
 class WindowHook:
     """The measured window: a device sync after step 1 and after step ``n``,
-    a CUDA event at every step boundary; with ``traced`` > 0, the next
-    ``traced`` steps under torch.profiler."""
+    a CUDA event at every step boundary; then the next ``traced`` (> 0)
+    steps under torch.profiler (the device's activity alone), and the port's
+    registry's counters read at the syncs that bound them."""
 
-    def __init__(self, clock: Clock, n: int, traced: int = 0):
+    def __init__(self, clock: Clock, n: int, traced: int):
         self.clock, self.n, self.traced = clock, n, traced
         self.events = [clock.event() for _ in range(n)]
         self.losses = []
         self.prof = None
+        self.counts: List[Dict[str, float]] = []  # at the traced slice's syncs
 
     def on_step(self, i, state, metrics, stats):
         if i <= self.n:
@@ -316,20 +318,22 @@ class WindowHook:
         elif i == self.n:
             self.clock.sync()
             self.t1 = time.perf_counter()
-            if self.traced:
-                from torch.profiler import ProfilerActivity, profile
+            from torch.profiler import ProfilerActivity, profile
 
-                # the device's activity alone: tracing the host's ops too
-                # slows the host, which paces RESCAL's step, and shows as
-                # device idle time the untraced window does not have
-                acts = [ProfilerActivity.CUDA if self.clock.cuda
-                        else ProfilerActivity.CPU]
-                self.prof = profile(activities=acts)
-                self.prof.start()
-                self.tp0 = time.perf_counter()
+            self.counts.append(_counters())
+
+            # the device's activity alone: tracing the host's ops too slows
+            # the host, which paces RESCAL's step, and shows as device idle
+            # time the untraced window does not have
+            acts = [ProfilerActivity.CUDA if self.clock.cuda
+                    else ProfilerActivity.CPU]
+            self.prof = profile(activities=acts)
+            self.prof.start()
+            self.tp0 = time.perf_counter()
         elif i == self.n + self.traced:
             self.clock.sync()
             self.tp1 = time.perf_counter()
+            self.counts.append(_counters())
             self.prof.stop()
 
     def on_end(self, i, state):
@@ -338,6 +342,17 @@ class WindowHook:
     def step_ms(self) -> List[float]:
         """The device timeline between consecutive step boundaries."""
         return [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+
+    def slice_counters(self) -> Dict[str, float]:
+        """Each registry counter's increase over the traced steps."""
+        a, b = self.counts
+        return {k: v - a.get(k, 0.0) for k, v in b.items()}
+
+
+def _counters() -> Dict[str, float]:
+    from repro_torch.common import telemetry
+
+    return telemetry.get_registry().snapshot()["counters"]
 
 
 @dataclasses.dataclass
@@ -353,9 +368,16 @@ class Record:
     call_s: List[float] = dataclasses.field(default_factory=list)  # host clock
     return_s: List[float] = dataclasses.field(default_factory=list)
     sample_s: List[float] = dataclasses.field(default_factory=list)  # spans
-    trace: Optional[object] = None  # trace.Trace of the traced steps
+    trace: Optional[object] = None  # trace.Trace of the steps after the window
     traced_batches: list = dataclasses.field(default_factory=list)
     rates: Optional[Dict[str, float]] = None  # the card's data-sheet rates
+    # the port's spans (spans.Span) that overlap the traced steps, on the
+    # profiler's timebase, and each registry counter's increase over them
+    spans: Optional[list] = None
+    counters: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # spans.Attribution of the traced steps; None where the trace holds no
+    # device op or the registry lost spans
+    phases: Optional[object] = None
 
 
 # --------------------------------------------------------------------------
@@ -456,6 +478,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     from repro_torch.core.kge_model import flush_state
 
     from kgebench import cost as C
+    from kgebench import spans as S
     from kgebench import trace as T
 
     set_precision(cell.config)
@@ -474,7 +497,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     check_batches = prog.batches[:cell.workload["check_steps"]]
     log(f"set-up steps done; warm step {step_s * 1e3:.3f} ms")
 
-    traced = cell.workload["traced_steps"] if trace else 0
+    # every run profiles the device over the steps after the window, which
+    # step_device_ms reads; --trace 1 adds the port's spans and counters
+    traced = cell.workload["traced_steps"]
     n = window_steps or max(cell.workload["min_window_steps"],
                             math.ceil(seconds / step_s)) + 1
     window = WindowHook(clock, n, traced)
@@ -503,13 +528,19 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     rec = Record(spec=spec, setup_s=window.t0 - t_start,
                  window_s=window.t1 - window.t0, steps=n - 1,
                  step_ms=window.step_ms(), batches=batches[1:n])
+    rec.trace = T.from_profiler(window.prof, traced, window.tp1 - window.tp0)
     if trace:
         rec.call_s, rec.return_s = calls[1:n], rets[1:n]
-        samples = sorted((e for e in reg.trace_json()["traceEvents"]
+        doc = reg.trace_json()
+        samples = sorted((e for e in doc["traceEvents"]
                           if e.get("ph") == "X" and e["name"] == "pipeline/sample"),
                          key=lambda e: e["ts"])
         rec.sample_s = [e["dur"] / 1e6 for e in samples[1:n]]
-        rec.trace = T.from_profiler(window.prof, traced, window.tp1 - window.tp0)
+        rec.counters = window.slice_counters()
+        rec.spans, att = S.slice_attribution(
+            S.from_profiler(window.prof), doc, window.tp0, window.tp1,
+            window.counts[1].get(S.DROPPED, 0.0))
+        rec.phases = att if rec.trace.device else None
         rec.traced_batches = batches[n - 1:n + traced]
         rec.rates = (C.peaks(torch.cuda.get_device_name(device)) if clock.cuda
                      else None)

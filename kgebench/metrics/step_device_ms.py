@@ -1,4 +1,5 @@
-"""The device time of every operation in the traced steps, a step."""
+"""The device time of every operation in the steps profiled after the
+window (every run profiles them), a step."""
 
 from kgebench.trace import total_us
 

@@ -48,14 +48,9 @@ def run(cell, seed: int, device, warmup: int, steps: int) -> dict:
     out = {"steps": steps, "window_s": tr.window_s}
     for name in ("step_device_ms", "device_idle_share"):  # as run.py reads them
         out[name] = load_module(cell.bench / "metrics" / f"{name}.py").read(rec)
-    doc = reg.trace_json()
-    clk = spans.clock_of(doc)
-    if clk is None:  # a program whose registry writes no clock anchor
-        return out
-    prof = spans.from_profiler(window.prof)
-    att = spans.attribute(prof, spans.spans_of(doc, prof.start_ns),
-                          spans.perf_to_us(window.tp0, clk, prof.start_ns),
-                          spans.perf_to_us(window.tp1, clk, prof.start_ns))
+    _, att = spans.slice_attribution(spans.from_profiler(window.prof), reg.trace_json(),
+                                     window.tp0, window.tp1,
+                                     window.counts[1].get(spans.DROPPED, 0.0))
     if att is not None:
         out["attribution"] = vars(att)
         if clock.cuda:  # a CPU run has no device metric

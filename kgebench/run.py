@@ -5,9 +5,11 @@
 
 from the root of a checkout that holds ``src/`` (the port) beside
 ``kgebench/``. Needs a CUDA card: without one, or with fewer cards than
-the cell asks for, it exits with 2 and prints no result. ``--trace 1``
-reports the cell's per-layer metrics from a torch.profiler slice after the
-window instead of its end-to-end ones.
+the cell asks for, it exits with 2 and prints no result. Every run
+profiles the device's activity over the cell's ``traced_steps`` after the
+window, from which ``step_device_ms`` is read; ``--trace 1`` also hands the
+readers the port's spans and counters over those steps and reports the
+cell's per-layer metrics instead of its end-to-end ones.
 """
 
 from __future__ import annotations

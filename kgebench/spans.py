@@ -263,3 +263,32 @@ def attribute(prof: Profile, spans: Sequence[Span], w0: float, w1: float
         launches=dict(launches), host_ms=dict(host),
         sample_overlap=overlap(step_iv, sampling) / sum(e - s for s, e in step_iv),
         inside=inside / len(mine) if mine else 1.0, outside_us=far)
+
+
+DROPPED = "telemetry/trace_events_dropped"  # the registry's count of lost spans
+
+
+def slice_attribution(prof: Profile, doc: dict, tp0: float, tp1: float,
+                      dropped: float = 0.0
+                      ) -> Tuple[Optional[List[Span]], Optional[Attribution]]:
+    """A traced slice from ``tp0`` to ``tp1`` (``time.perf_counter()``
+    readings at its two syncs): the spans of the registry's ``trace_json()``
+    ``doc`` that overlap it, on ``prof``'s timebase, and ``attribute`` over
+    it. (None, None) without a clock anchor; the attribution is None where
+    the registry lost spans (``dropped`` > 0), so a truncated trace cannot
+    read as a short phase."""
+    clock = clock_of(doc)
+    if clock is None:
+        return None, None
+    every = spans_of(doc, prof.start_ns)
+    w0, w1 = (perf_to_us(t, clock, prof.start_ns) for t in (tp0, tp1))
+    inside = [sp for sp in every if sp[3] > w0 and sp[2] < w1]
+    return inside, None if dropped > 0 else attribute(prof, every, w0, w1)
+
+
+def metric_reader(name: str):
+    """The reader of the per-layer metric ``name`` of ``Attribution.metrics``
+    (``metrics/<name>.py``): None where the run has no attribution."""
+    def read(rec):
+        return None if rec.phases is None else rec.phases.metrics()[name]
+    return read

@@ -1,5 +1,6 @@
 """Tiny versions of the benchmark's cells, for CPU tests."""
 
+import json
 import sys
 from pathlib import Path
 
@@ -22,3 +23,9 @@ def tiny(cell):
     cell.workload.update(warmup_steps=4, traced_steps=3)
     cell.workload["limits"].update(loss=1e-5, grad_norm=1e-5, param_change=1e-5)
     return cell
+
+
+def cells():
+    """Every cell ``BENCHMARK.json`` names, for the tests that take each."""
+    manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
+    return [w["name"] for w in manifest["workloads"]]

@@ -8,13 +8,13 @@ import gc
 
 import pytest
 
-from _tiny import ROOT  # noqa: F401  (puts the repo root and src/ on sys.path)
+from _tiny import cells  # puts the repo root and src/ on sys.path
 
 import torch
 
 from kgebench import graph, harness
 
-CELLS = ["rescal-fb15k.train", "transr-fb15k.train"]
+CELLS = cells()
 CONTROLS = {"tf32": {"tf32": True}, "half_batch": {"fault": "half_batch"}}
 
 

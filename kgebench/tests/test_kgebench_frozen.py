@@ -14,11 +14,13 @@ from kgebench.cost import peaks
 from kgebench.cost.dedup_aggregate import dedup_cost
 from kgebench.cost.fused_update import update_cost
 from kgebench.cost.pairwise import pairwise_cost
+from kgebench.cost.rescal_proj import rescal_proj_cost
 from repro_torch.common.config import KGEConfig
 from repro_torch.common.hw import H100_SXM
 from repro_torch.core.sampling import JointSampler
 from repro_torch.data.kg_synth import make_synthetic_kg
 from repro_torch.kernels.kge_score import cost as score_cost
+from repro_torch.kernels.rescal_proj import cost as rescal_cost
 from repro_torch.kernels.sparse_adagrad import cost as adagrad_cost
 
 
@@ -38,6 +40,12 @@ def test_pairwise_cost(mode, shape):
 def test_adagrad_costs(n, D, valid):
     _same(dedup_cost(n, D), adagrad_cost.dedup_cost(n, D))
     _same(update_cost(n, D, valid), adagrad_cost.update_cost(n, D, valid))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("shape", [(1024, 500, 500), (64, 203, 300)])
+def test_rescal_proj_cost(shape, backward):
+    _same(rescal_proj_cost(*shape, backward), rescal_cost.rescal_proj_cost(*shape, backward))
 
 
 def test_peaks_are_the_data_sheet():

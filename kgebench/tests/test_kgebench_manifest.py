@@ -67,13 +67,20 @@ def test_every_cell_has_its_files_and_metrics():
         assert set(cell.workload["limits"]) == set(harness.CHECKED)
 
 
+def _contents(folder):
+    return {f: f.read_bytes() for f in folder.rglob("*") if f.is_file()}
+
+
 def test_a_new_config_cell_and_metric_are_new_files_and_entries(tmp_path, cache):
     """A copy of the benchmark plus a configuration file, a workload file and
-    a metric reader, and their manifest entries, no existing file edited,
-    runs the new cell (tiny, on the CPU) and reports the new metric."""
+    metric readers (one of the host's clock, one of a registry counter, one
+    of the port's spans), and their manifest entries, no existing file
+    edited, runs the new cell (tiny, on the CPU) and reports the new
+    metrics."""
     shutil.copytree(ROOT / "kgebench", tmp_path / "kgebench",
                     ignore=shutil.ignore_patterns(".cache", "__pycache__"))
     bench = tmp_path / "kgebench"
+    before = _contents(bench)
     manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
     first = manifest["workloads"][0]
     conf = json.loads((ROOT / "kgebench/configs/rescal-fb15k.json").read_text())
@@ -89,20 +96,39 @@ def test_a_new_config_cell_and_metric_are_new_files_and_entries(tmp_path, cache)
     (bench / "workloads/rescal-fb15k-b.train.json").write_text(json.dumps(work))
     (bench / "metrics/window_steps.py").write_text(
         "def read(rec):\n    return float(rec.steps)\n")
-    manifest["per_layer"].append(
-        {"name": "window_steps", "unit": "steps", "better": "higher",
-         "source": "host_clock", "layer": "loop", "moves": "triplets_per_s",
-         "workloads": ["rescal-fb15k-b.train"]})
+    (bench / "metrics/fused_proj_per_step.py").write_text(
+        "def read(rec):\n"
+        "    n = rec.counters.get('scores/rescal_proj_fused')\n"
+        "    return None if n is None else n / rec.trace.steps\n")
+    (bench / "metrics/traced_step_spans.py").write_text(
+        "def read(rec):\n"
+        "    if rec.spans is None:\n"
+        "        return None\n"
+        "    return float(sum(sp[0] == 'engine/step' for sp in rec.spans))\n")
+    for name, unit, source in [("window_steps", "steps", "host_clock"),
+                               ("fused_proj_per_step", "launches", "program_counter"),
+                               ("traced_step_spans", "steps", "program_span")]:
+        manifest["per_layer"].append(
+            {"name": name, "unit": unit, "better": "higher", "source": source,
+             "layer": "loop", "moves": "step_device_ms",
+             "workloads": ["rescal-fb15k-b.train"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(manifest))
+    assert {f: b for f, b in _contents(bench).items() if f in before} == before
     cell = tiny(harness.load_cell("rescal-fb15k-b.train", root=tmp_path))
     assert cell.bench == bench and cell.config["name"] == "rescal-fb15k-b"
     out = harness.run_cell(cell, 5, 0.1, False, torch.device("cpu"), 0.0,
                            window_steps=4)
-    assert out["correct"] and set(out["metrics"]) == {m["name"] for m in cell.end_to_end}
+    # the CPU runs no device op, so a metric read from the device trace is
+    # left out of a CPU run's line
+    assert out["correct"] and set(out["metrics"]) == {
+        m["name"] for m in cell.end_to_end if m["source"] != "device_trace"}
     assert list(out)[-1] == "checks"
     out = harness.run_cell(cell, 6, 0.1, True, torch.device("cpu"), 0.0,
                            window_steps=4)
     assert out["metrics"]["window_steps"]["value"] == 3.0
+    # the CPU takes the card's route: one fused projection op a step
+    assert out["metrics"]["fused_proj_per_step"]["value"] == 1.0
+    assert out["metrics"]["traced_step_spans"]["value"] == cell.workload["traced_steps"]
 
 
 @pytest.mark.parametrize("key,value", [

@@ -10,7 +10,9 @@ from _tiny import ROOT
 from kgebench import harness
 from kgebench.cost import KernelCost, bound_s, peaks
 from kgebench.cost import launches
+from kgebench.cost.rescal_proj import rescal_proj_cost
 from kgebench.cost.step import step_cost
+from kgebench.spans import LOOP, Attribution
 from kgebench.trace import Trace, busy_us, idle_gaps, top_ops
 
 SPEC = harness.load_cell("rescal-fb15k.train").spec
@@ -30,7 +32,7 @@ def record(**kw):
 
 def test_rate_is_all_the_work_over_all_the_time():
     rec = record(window_s=8.0, steps=1000)
-    assert reader("triplets_per_s")(rec) == pytest.approx(1000 * 1024 / 8.0)
+    assert reader("window_triplets_per_s")(rec) == pytest.approx(1000 * 1024 / 8.0)
     assert reader("setup_s")(rec) == 12.5
 
 
@@ -96,6 +98,45 @@ def test_roofline_shares_match_launches_in_order():
     assert reader("dedup_roofline")(rec) is None  # no dedup launch traced
     rec.trace.device.pop()  # a launch the trace lost: no reading, not a wrong one
     assert reader("update_roofline")(rec) is None
+
+
+def test_rescal_proj_roofline_takes_a_forward_and_a_backward_a_step():
+    b, d, r = SPEC["batch_size"], SPEC["dim"], SPEC["rel_dim"]
+    costs = [rescal_proj_cost(b, d, r, backward) for _ in range(2) for backward in (False, True)]
+    # each launch at exactly twice its bound, beside other ops: the share reads 50%
+    t, dev = 0.0, [("dedup_warp_kernel", 0.0, 900.0)]
+    for kc in costs:
+        dur = 2 * bound_s(kc, RATES) * 1e6
+        flag = "true" if kc.name.endswith("bwd") else "false"
+        dev.append((f"void (anonymous namespace)::rescal_proj_kernel<4, {flag}>(float const*)",
+                    t, t + dur))
+        t += dur + 1
+    rec = record(trace=Trace(dev, 2, 1.0), rates=RATES)
+    assert reader("rescal_proj_roofline")(rec) == pytest.approx(50.0)
+    rec.trace.device.pop()  # a launch the trace lost: no reading, not a wrong one
+    assert reader("rescal_proj_roofline")(rec) is None
+    assert reader("rescal_proj_roofline")(record(trace=Trace(dev[:1], 2, 1.0), rates=RATES)) is None
+
+
+def test_phase_readers_read_the_attribution():
+    """Each of the eight readers returns its number of the traced slice's
+    attribution, and nothing where the run has none."""
+    att = Attribution(
+        steps=4, window_us=2000.0,
+        device_ms={"gather": 0.5, "score": 0.25, "backward": 0.75},  # no update op
+        copy_ms=0.01, other_ms=0.02,
+        idle_us={LOOP: 40.0, "engine/step": 100.0, "step/score": 60.0,
+                 "step/backward": 20.0, "pipeline/wait": 30.0, "pipeline/sample": 5.0},
+        launches={"engine/step": 8.0, "step/score": 24.0, "step/backward": 49.0},
+        host_ms={"engine/step": 5.0}, sample_overlap=0.45, inside=1.0, outside_us=0.0)
+    want = {"gather_device_ms": 0.5, "score_device_ms": 0.25, "backward_device_ms": 0.75,
+            "update_device_ms": 0.0, "launches_per_step": 81.0,
+            "idle_enqueue_share": 100.0 * 180 / 2000, "idle_wait_share": 100.0 * 30 / 2000,
+            "sample_overlap_share": 45.0}
+    assert set(want) == set(att.metrics())
+    for name, value in want.items():
+        assert reader(name)(record(phases=att)) == pytest.approx(value), name
+        assert reader(name)(record()) is None
 
 
 def test_step_mfu_counts_needed_work():

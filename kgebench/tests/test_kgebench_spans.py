@@ -121,6 +121,24 @@ def test_no_trainer_step_in_the_window():
                            5.0, 105.0) is None
 
 
+def test_a_slice_of_a_registry_trace(att):
+    """The registry's trace of SPANS with a clock anchor at 0 on both clocks
+    (a span's ts is its start on the profiler's timebase, a perf_counter
+    reading of p s is p * 1e6 us there): the spans that overlap the slice,
+    the same attribution as SPANS', and none where spans were lost."""
+    doc = {"traceEvents": [{"name": n, "ph": "X", "tid": th, "ts": s, "dur": e - s, "args": a}
+                           for n, th, s, e, a in SPANS],
+           "otherData": {"clock": {"perf_counter_ns": 0, "time_ns": 0}}}
+    inside, got = spans.slice_attribution(PROF, doc, 61e-6, 105e-6)
+    assert inside == [sp for sp in SPANS if sp[3] > 61]  # step 1 and its phases out
+    assert got == spans.attribute(PROF, SPANS, 61.0, 105.0) and got.steps == 1
+    inside, got = spans.slice_attribution(PROF, doc, 5e-6, 105e-6)
+    assert inside == SPANS and got == att
+    assert spans.slice_attribution(PROF, doc, 5e-6, 105e-6, dropped=1)[1] is None
+    assert spans.slice_attribution(PROF, {"traceEvents": doc["traceEvents"]},
+                                   5e-6, 105e-6) == (None, None)
+
+
 def test_the_registry_clock_puts_spans_on_the_profilers_timebase():
     reg = MetricsRegistry(enabled=True, trace=True)
     before = time.perf_counter()
